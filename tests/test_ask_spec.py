@@ -2,8 +2,6 @@
 path must equal the exact scan receiver slot-for-slot on conformant
 captures, and conformance flags must route the rest to the exact path.
 
-Runs in Pallas interpret mode on CPU (the walk kernel); the on-chip
-soak lives in tools/tpu_spec_soak.py.
 """
 
 import numpy as np
@@ -20,7 +18,7 @@ CFG = ask.AskConfig()
 def _spec(wave, max_frames=16, **kw):
     res, ok = ask_spec.demodulate_spec(
         CFG, jnp.asarray(np.asarray(wave, np.float32))[None],
-        max_frames=max_frames, interpret=True, **kw)
+        max_frames=max_frames, **kw)
     return res, bool(np.asarray(ok)[0])
 
 
@@ -89,12 +87,10 @@ def test_overflow_flags_not_silently_wrong():
 def test_demodulate_fast_merges_fallback_rows(monkeypatch):
     """demodulate_fast must merge spec rows with exact re-decodes of
     flagged rows (forced here via a tiny candidate table)."""
-    monkeypatch.setattr(ask_spec, "spec_supported", lambda: True)
     orig = ask_spec.demodulate_spec_jit
 
     def tiny(cfg, xb, max_frames=128):
-        return orig(cfg, xb, max_frames=max_frames, n_cand=2,
-                    interpret=True)
+        return orig(cfg, xb, max_frames=max_frames, n_cand=2)
 
     monkeypatch.setattr(ask_spec, "demodulate_spec_jit", tiny)
     frames = ask.build_frames(b"merge", CFG, num_frames=4)
@@ -115,7 +111,7 @@ def test_batched_rows_independent():
     caps[0, :len(w0)] = w0
     caps[1, :len(w1)] = w1
     res, ok = ask_spec.demodulate_spec(
-        CFG, jnp.asarray(caps), max_frames=6, interpret=True)
+        CFG, jnp.asarray(caps), max_frames=6)
     assert np.asarray(ok).all()
     for b, w in enumerate((w0, w1)):
         pad = np.zeros(t, np.float32)
@@ -210,22 +206,16 @@ def test_dense_fire_sliding_max_vs_naive():
             upd[r] and masked[r] >= padded[r + 1: r + w + 1].max()
             for r in range(t)
         ])
-        # XLA 2-D form and the fused Pallas fire kernel (r5) must both
-        # match the naive oracle bit-for-bit
-        got_xla = np.asarray(ask_spec.dense_fire_candidates(
-            CFG, jnp.asarray(sync), jnp.asarray(upd), use_kernel=False))
-        assert np.array_equal(got_xla, want), ("xla", t)
-        got_k = np.asarray(ask_spec.dense_fire_candidates(
-            CFG, jnp.asarray(sync), jnp.asarray(upd), interpret=True,
-            use_kernel=True))
-        assert np.array_equal(got_k, want), ("kernel", t)
+        got = np.asarray(ask_spec.dense_fire_candidates(
+            CFG, jnp.asarray(sync), jnp.asarray(upd)))
+        assert np.array_equal(got, want), t
 
 
 def test_chain_kernel_vs_scan():
-    """The fused chain kernel (r5) must resolve fired/peak identically
-    to the associative pair scan on random chain windows, including
-    all-masked rows, single-update rows, tie values, and fires at the
-    guard boundary."""
+    """The record-chain resolution (ask_spec._resolve_chain) must
+    resolve fired/peak identically to a sequential NumPy replay of the
+    chain on random windows, including all-masked rows, single-update
+    rows, tie values, and fires at the guard boundary."""
     rng = np.random.default_rng(31)
     guard = CFG.peak_guard
     for win in (512, 1024):
@@ -241,11 +231,10 @@ def test_chain_kernel_vs_scan():
             vals[5, 7] = 1.0                          # single update
             base = rng.integers(0, 1 << 20, c1).astype(np.int32)
             vj = jnp.asarray(vals)
-            bj = jnp.asarray(base)
-            fired_k, peak_k = ask_spec._chain_kernel_call(
-                vj, bj, win, guard, interpret=True)
-            # reference: the pair scan form
             idx = base[:, None] + np.arange(win, dtype=np.int32)
+            fired_k, peak_k = ask_spec._resolve_chain(
+                vj, jnp.asarray(idx), guard)
+            # reference: running max / record replayed in NumPy
             m_excl = np.full_like(vals, -np.inf)
             m_excl[:, 1:] = np.maximum.accumulate(vals, axis=1)[:, :-1]
             upd = vals > m_excl

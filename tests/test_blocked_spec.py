@@ -1,8 +1,7 @@
-"""Blocked decode through the speculative kernel (interpret mode on
-CPU) vs sequential `decode_capture` — the same adversarial seam corpus
-as tests/test_parallel_adversarial.py, plus the walk kernel's cursor
-semantics (start_cursor / scan_limit / with_cursor) against the exact
-scan's."""
+"""Blocked decode through the speculative decoder vs sequential
+`decode_capture` — the same adversarial seam corpus as
+tests/test_parallel_adversarial.py, plus the walk's cursor semantics
+(start_cursor / scan_limit / with_cursor) against the exact scan's."""
 
 import numpy as np
 import pytest
@@ -15,7 +14,7 @@ from trackmaker_tpu.core.framing import Frame
 from trackmaker_tpu.oracle.phy import OracleEncoder
 from trackmaker_tpu.parallel.stream import _decode_blocked_spec, halo_size
 from trackmaker_tpu.phy.decoder import decode_capture
-from trackmaker_tpu.phy.pallas_decode import decode_capture_spec
+from trackmaker_tpu.phy.spec_decode import decode_capture_spec
 
 
 def _raw(data: bytes, seq=0, src=1, dst=2, ftype=1) -> bytes:
@@ -42,7 +41,7 @@ def _decoded_set(res):
 def _blocked_spec(cfg, wave, n_blocks, mfpb=8, n_cand=32, local=2):
     x = jnp.asarray(wave, jnp.float32)
     res, ok = _decode_blocked_spec(
-        cfg, x, local, n_blocks, mfpb, len(wave), n_cand, interpret=True)
+        cfg, x, local, n_blocks, mfpb, len(wave), n_cand)
     return res, bool(np.asarray(ok))
 
 
@@ -166,7 +165,7 @@ def test_spec_cursor_semantics_match_exact():
             cfg, jnp.asarray(wave), 2, max_frames=8, with_cursor=True,
             start_cursor=cur0, scan_limit=lim)
         res, ok, srch_s, cur_s = decode_capture_spec(
-            cfg, wave[None], 2, max_frames=8, n_cand=32, interpret=True,
+            cfg, wave[None], 2, max_frames=8, n_cand=32,
             start_cursor=cur0, scan_limit=lim, with_cursor=True)
         assert bool(np.asarray(ok)[0])
         assert int(np.asarray(cur_s)[0]) == int(np.asarray(cur_e)), \
@@ -198,19 +197,49 @@ def test_spec_cursor_incomplete_pending():
         with_cursor=True)
     _res, ok, srch_s, cur_s = decode_capture_spec(
         cfg, full[None], 2, max_frames=8, n_cand=32, valid_len=cut,
-        interpret=True, with_cursor=True)
+        with_cursor=True)
     assert bool(np.asarray(ok)[0])
     assert int(np.asarray(srch_s)[0]) == int(np.asarray(srch_e))
     assert int(np.asarray(cur_s)[0]) == int(np.asarray(cur_e))
 
 
+def _walk_scalar(fields, start_cursor, scan_limit, max_frames):
+    """NumPy transliteration of the sequential consumption walk
+    (decoder.rs:242-356 as decode_capture's scan replays it) over a
+    sorted candidate table: fields rows 0=pos, 1=consumed,
+    2=stop-if-attempted, 3=keep-if-attempted.  Same contract as
+    spec_decode._spec_walk."""
+    from trackmaker_tpu.phy.spec_decode import _BIGI
+    fields = np.asarray(fields, np.int64)
+    b, _, c = fields.shape
+    out = [np.zeros((b, c), bool), np.zeros((b, c), bool),
+           np.zeros(b, np.int64), np.zeros(b, bool), np.zeros(b, np.int64)]
+    for r in range(b):
+        cur, done, att, pending = int(start_cursor[r]), False, 0, int(_BIGI)
+        for k in range(c):
+            pos, consumed, stopf, keepf = fields[r, :, k]
+            exists = pos < _BIGI and pos < scan_limit[r]
+            at = exists and not done and pos >= cur and att < max_frames
+            stop = at and stopf > 0
+            adv = at and not stop
+            out[0][r, k] = adv and keepf > 0
+            out[1][r, k] = at
+            if adv:
+                cur = pos + consumed
+            if stop:
+                done, pending = True, min(pending, pos)
+            att += int(at)
+        out[2][r], out[3][r], out[4][r] = cur, done or att < max_frames, \
+            pending
+    return out
+
+
 def test_walk_vectorized_equals_smem():
-    """The pointer-doubling walk must replay the scalar SMEM kernel's
-    decisions bit-for-bit on randomized candidate tables: ascending
-    positions with _BIGI pads, random consumed/stop/keep flags, random
-    cursors and scan limits, and max_frames caps that actually bind."""
-    from trackmaker_tpu.phy.pallas_decode import (
-        _BIGI, _spec_walk, _spec_walk_smem)
+    """The vectorized walk must replay the scalar walk's decisions
+    bit-for-bit on randomized candidate tables: ascending positions
+    with _BIGI pads, random consumed/stop/keep flags, random cursors and
+    scan limits, and max_frames caps that actually bind."""
+    from trackmaker_tpu.phy.spec_decode import _BIGI, _spec_walk
 
     rng = np.random.default_rng(17)
     for trial in range(40):
@@ -232,7 +261,8 @@ def test_walk_vectorized_equals_smem():
         mf = int(rng.choice([1, 2, 5, c, 2 * c]))
 
         got = _spec_walk(fields, cur0, limit, mf)
-        want = _spec_walk_smem(fields, cur0, limit, mf, interpret=True)
+        want = _walk_scalar(np.asarray(fields), np.asarray(cur0),
+                            np.asarray(limit), mf)
         names = ("keep", "attempted", "cur_f", "done", "pending")
         for name, g, w in zip(names, got, want):
             assert np.array_equal(np.asarray(g), np.asarray(w)), (
@@ -240,10 +270,10 @@ def test_walk_vectorized_equals_smem():
 
 
 def test_walk_unroll_invariance():
-    """TM_WALK_UNROLL is a pure scheduling knob (r5): the consumption
+    """TM_WALK_UNROLL is a pure scheduling knob: the consumption
     walk's keep/attempted/cursor outputs are identical for any unroll."""
     import jax
-    from trackmaker_tpu.phy import pallas_decode as pd
+    from trackmaker_tpu.phy import spec_decode as pd
     rng = np.random.default_rng(11)
     b, c = 4, 32
     pos = np.sort(rng.integers(0, 50_000, (b, c)), axis=1)

@@ -277,7 +277,7 @@ def test_coded_4b5b_corrects_what_uncoded_loses():
     ("manchester", False), ("manchester", True),
     ("fourb5b", False), ("fourb5b", True)])
 def test_batched_decode_matches_streaming(kind, rate34):
-    """The batched TPU decode (batched_decode_fn: pattern sync + soft
+    """The batched device decode (batched_decode_fn: pattern sync + soft
     demod + Viterbi, one fixed-shape program) must recover exactly the
     frames the streaming `process_samples` facade does, on noisy
     multi-frame captures with random lead-in."""

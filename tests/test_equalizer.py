@@ -109,7 +109,7 @@ def test_channel_estimate_matches_truth():
     from trackmaker_tpu import sync as sync_mod
     from trackmaker_tpu.phy import line_coding
     pre = np.asarray(line_coding.preamble_waveform(cfg))
-    corr = sync_mod.auto_xcorr(jnp.asarray(echoed), pre)
+    corr = sync_mod.normalized_xcorr(jnp.asarray(echoed), pre)
     anchor = jnp.argmax(corr).astype(jnp.int32)
     h, lam = estimate_channel(cfg, jnp.asarray(echoed), anchor)
     h = np.asarray(h)

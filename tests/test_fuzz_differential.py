@@ -1,7 +1,7 @@
 """Randomized differential fuzz: decoder vs oracle across seeds/configs.
 
 Every trial builds a random frame train (random payload sizes, gaps,
-amplitudes, noise, truncation) and requires the batched TPU decoder to
+amplitudes, noise, truncation) and requires the batched device decoder to
 produce the oracle's exact frame sequence.
 """
 

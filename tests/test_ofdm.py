@@ -42,7 +42,7 @@ def test_single_frame_roundtrip():
     """Config 2: IFFT modulate + preamble-correlate + FFT demodulate one
     frame."""
     modem = OfdmModem()
-    frame = Frame.new_data(3, 1, 2, b"OFDM over sound, on a TPU." * 4)
+    frame = Frame.new_data(3, 1, 2, b"OFDM over sound, on a GPU." * 4)
     wave = modem.encode_frames([frame])
     got = modem.decode(wave, len(frame.to_bytes()))
     assert len(got) == 1
@@ -100,7 +100,7 @@ def _find_preambles_scalar_ref(cfg, rx, max_frames):
 
     pre = chirp_cached(cfg.preamble_len, cfg.chirp_lo_hz, cfg.chirp_hi_hz,
                        cfg.sample_rate)
-    corr = sync_mod.auto_xcorr(rx, pre)
+    corr = sync_mod.normalized_xcorr(rx, pre)
     hits = corr >= cfg.sync_threshold
     tables = blockq.block_tables(hits)
     w = cfg.preamble_len

@@ -328,7 +328,7 @@ def test_qam64_tier_lifts_throughput_on_strong_channel():
 
 
 def test_batched_decode_matches_streaming():
-    """The batched TPU decode (batched_decode_fn) must recover exactly
+    """The batched device decode (batched_decode_fn) must recover exactly
     the frames the streaming `process_samples` facade does on noisy
     equal-length captures (default loading)."""
     import numpy as np

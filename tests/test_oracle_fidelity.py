@@ -10,7 +10,7 @@ oracle (trackmaker_tpu/oracle/phy.py) is the behavioral transliteration
 of src/phy/decoder.rs; this suite pins each of its consumption decisions
 to the exact reference line AND the exact integer the reference
 arithmetic produces, with the values computed by hand in the test — so a
-regression in either the oracle or the batched TPU decoder trips a named
+regression in either the oracle or the batched device decoder trips a named
 rule, not just a generic payload mismatch.
 
 Rules pinned (reference file src/phy/decoder.rs unless noted):
@@ -33,7 +33,7 @@ Rules pinned (reference file src/phy/decoder.rs unless noted):
                                                           :243-293 (&self)
   R11 incomplete frame waits for more data (None)         :252-254,295-297
 
-Every scenario is also decoded by the batched TPU `decode_capture` and
+Every scenario is also decoded by the batched device `decode_capture` and
 must match the oracle frame-for-frame.
 """
 
@@ -71,7 +71,7 @@ def _drive(cfg, wave, local=2):
     return o, frames
 
 
-def _tpu_equal(cfg, wave, oracle_frames, local=2, max_frames=16):
+def _device_equal(cfg, wave, oracle_frames, local=2, max_frames=16):
     res = decode_capture(cfg, np.asarray(wave, np.float32), local,
                          max_frames=max_frames)
     got = res.to_frames()
@@ -116,7 +116,7 @@ def test_r1_end_to_end_and_tpu():
     assert [e["kind"] for e in o.events] == \
         ["preamble", "bad_header", "preamble", "frame"]
     assert [f.data for f in frames] == [b"after-bad-header"]
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +147,7 @@ def test_r2_ack_len0_is_legal():
     wave = _frame_wave(cfg, ack)
     o, frames = _drive(cfg, wave)
     assert [f.to_bytes() for f in frames] == [ack.to_bytes()]
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +172,7 @@ def test_r4_len_256_decodes_len_257_rejected():
     wave = np.concatenate([enc.preamble, _encode_bits(cfg, bits)])
     o, frames = _drive(cfg, wave)
     assert len(frames) == 1 and frames[0].data == payload
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
     # 257: rejected at the length gate, consuming 1 sample
     payload2 = bytes(257)
@@ -183,7 +183,7 @@ def test_r4_len_256_decodes_len_257_rejected():
     assert frames2 == []
     assert any(e["kind"] == "bad_len" and e["len"] == 257
                for e in o2.events)
-    _tpu_equal(cfg, wave2, frames2)
+    _device_equal(cfg, wave2, frames2)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +212,7 @@ def test_r5_4b5b_invalid_symbol_partial_consume():
     o2.offset += o2._search()
     used = o2._decode_frame([])
     assert used == 60 + (80 // 4) * 15 == 360
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +247,9 @@ def test_r6_header_49_bit_boundary():
     kinds = [e["kind"] for e in ob.events]
     assert "bad_header" not in kinds
     assert frames_b == []
-    # both cases: TPU decoder agrees
-    _tpu_equal(cfg, wa, [])
-    _tpu_equal(cfg, wb, frames_b)
+    # both cases: device decoder agrees
+    _device_equal(cfg, wa, [])
+    _device_equal(cfg, wb, frames_b)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +273,7 @@ def test_r7_dst_filter_consumes_whole_frame():
     o2.buf = np.asarray(wave, np.float32)
     o2.offset += o2._search()
     assert o2._decode_frame([]) == 96 + 136 * 6 == 912
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 def test_r8_crc_fail_consumes_whole_frame():
@@ -291,7 +291,7 @@ def test_r8_crc_fail_consumes_whole_frame():
     assert [e["kind"] for e in o.events] == \
         ["preamble", "crc_fail", "preamble", "frame"]
     assert [f.data for f in frames] == [b"clean"]
-    _tpu_equal(cfg, stream, frames)
+    _device_equal(cfg, stream, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +319,7 @@ def test_r9a_refined_equals_expected_on_clean_frame():
     # expected sync start = hit + 96 - 48 (sync_len = samples_for_bits(8))
     assert ev["refined"] == 100 + 96 - 48
     assert [g.to_bytes() for g in frames] == [f.to_bytes()]
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 def test_r9b_refine_clamps_at_buffer_end():
@@ -339,7 +339,7 @@ def test_r9b_refine_clamps_at_buffer_end():
 @pytest.mark.parametrize("skew", [0.994, 0.997, 1.003, 1.008])
 def test_r9c_skew_decisions_differential(skew):
     # 1.008 measurably moves the refine (-1); all factors must keep
-    # oracle == TPU decision-for-decision even when decode fails.
+    # oracle == device decision-for-decision even when decode fails.
     cfg = _cfg()
     f = Frame.new_data(5, 1, 2, b"realigned")
     w = _frame_wave(cfg, f)
@@ -348,7 +348,7 @@ def test_r9c_skew_decisions_differential(skew):
     wave = np.concatenate(
         [np.zeros(100, np.float32), ws, np.zeros(200, np.float32)])
     o, frames = _drive(cfg, wave)
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +370,7 @@ def test_r10_nrzi_state_reset_between_frames():
     wave = np.concatenate([w1, np.zeros(GAP, np.float32), w2])
     o, frames = _drive(cfg, wave)
     assert [g.to_bytes() for g in frames] == [f1.to_bytes(), f2.to_bytes()]
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)
 
 
 def test_r10_decode_bits_is_stateless():
@@ -406,7 +406,7 @@ def test_r11_incomplete_waits_then_completes():
     got = o.process_samples(wave[cut2:])
     assert [g.to_bytes() for g in got] == [f.to_bytes()]
 
-    # TPU equivalent: decode_capture with valid_len mid-body reports
+    # Device equivalent: decode_capture with valid_len mid-body reports
     # no frame; full length reports it; with_cursor pins the drain point
     # to the pending frame's preamble start (0 here).
     padded = np.zeros(len(wave) + 64, np.float32)
@@ -420,7 +420,7 @@ def test_r11_incomplete_waits_then_completes():
 
 
 # ---------------------------------------------------------------------------
-# composite: every failure mode in one capture, oracle vs TPU
+# composite: every failure mode in one capture, oracle vs device
 
 
 @pytest.mark.parametrize("lc", [MANCHESTER, FOUR_B_FIVE_B])
@@ -450,4 +450,4 @@ def test_composite_all_rules_differential(lc):
     wave = np.concatenate(parts)
     o, frames = _drive(cfg, wave)
     assert [f.data for f in frames] == [f.data for f in want]
-    _tpu_equal(cfg, wave, frames)
+    _device_equal(cfg, wave, frames)

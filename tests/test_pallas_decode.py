@@ -1,14 +1,12 @@
-"""Speculative Pallas decoder (phy/pallas_decode.py) vs the exact scan,
-in interpreter mode on CPU.  Covers the decision paths the walk must
+"""Speculative decoder (phy/spec_decode.py) vs the exact scan.
+Covers the decision paths the walk must
 replay exactly: header-fail mid-run landings, len-bad single-sample
 consumption, dst filter, CRC fail, evil payloads embedding preamble
 bytes, incomplete frames at the capture end (valid_len), max_frames
 capping, and candidate-table overflow -> exact fallback."""
 
 import numpy as np
-import pytest
 
-import jax
 import jax.numpy as jnp
 
 from trackmaker_tpu.core import bitops
@@ -16,7 +14,7 @@ from trackmaker_tpu.core.config import PhyConfig
 from trackmaker_tpu.core.framing import Frame
 from trackmaker_tpu.oracle.phy import OracleEncoder
 from trackmaker_tpu.phy.decoder import decode_capture
-from trackmaker_tpu.phy.pallas_decode import decode_capture_spec
+from trackmaker_tpu.phy.spec_decode import decode_capture_spec
 
 
 def _cfg():
@@ -39,7 +37,7 @@ def _spec_vs_exact(cfg, wave, local=2, max_frames=16, n_cand=64,
     x = np.asarray(wave, np.float32)[None]
     res, ok = decode_capture_spec(
         cfg, x, local, max_frames=max_frames, n_cand=n_cand,
-        valid_len=valid_len, interpret=True)
+        valid_len=valid_len)
     assert bool(np.asarray(ok)[0]) == expect_ok
     exact = decode_capture(cfg, jnp.asarray(wave), local,
                            max_frames=max_frames, valid_len=valid_len)
@@ -155,7 +153,7 @@ def test_spec_dense_hits_complete_or_flagged():
     assert _masked(res, 0) == _masked(exact)
 
     # the per-row cap itself: counts > rpb must trip overflow
-    from trackmaker_tpu.phy.pallas_decode import _compact_hit_rows
+    from trackmaker_tpu.phy.spec_decode import _compact_hit_rows
     rows = np.full((1, 4, 16), 2**30, np.int32)
     rows[..., 4:] = 0
     rows[0, 1, :4] = [128, 130, 140, 150]
@@ -183,11 +181,44 @@ def test_spec_promiscuous_local_addr():
     _spec_vs_exact(cfg, wave, local=-1)
 
 
-def test_fast_wrapper_spec_fallback_merge():
-    """decode_capture_fast on a batch where one row overflows: merged
-    output must equal per-row references."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("fast wrapper uses the kernel only on TPU")
+def test_fast_wrapper_spec_fallback_merge(monkeypatch):
+    """decode_capture_fast on a batch where one row overflows its
+    candidate table: the merged output must equal per-row references
+    (the overflowed row re-decodes through the exact scan)."""
+    from trackmaker_tpu.phy import decoder, spec_decode
+    from trackmaker_tpu.phy.decoder import decode_capture_fast
+
+    cfg = _cfg()
+    enc = OracleEncoder(cfg)
+    few = np.concatenate([
+        enc.encode_frame(Frame.new_data(1, 1, 2, b"one")),
+        np.zeros(600, np.float32)])
+    many = np.concatenate(
+        [np.concatenate([enc.encode_frame(
+            Frame.new_data(i, 1, 2, bytes([i]) * 3)),
+            np.zeros(150, np.float32)]) for i in range(6)])
+    t = max(len(few), len(many))
+    batch = np.zeros((2, t), np.float32)
+    batch[0, :len(few)] = few
+    batch[1, :len(many)] = many
+
+    calls = []
+    orig = spec_decode.decode_capture_spec_jit
+
+    def small_table(cfg, x, addr, max_frames=64, valid_len=None):
+        res, ok = orig(cfg, x, addr, max_frames=max_frames, n_cand=4,
+                       valid_len=valid_len)
+        calls.append(np.asarray(ok))
+        return res, ok
+
+    monkeypatch.setattr(spec_decode, "decode_capture_spec_jit", small_table)
+    got = decode_capture_fast(cfg, jnp.asarray(batch), 2, max_frames=16)
+    assert calls and calls[0].tolist() == [True, False]
+    for b in range(2):
+        want = decoder.decode_capture(cfg, jnp.asarray(batch[b]), 2,
+                                      max_frames=16)
+        assert _masked(got, b) == _masked(want)
+    assert len(_masked(got, 1)) == 6
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +266,7 @@ def test_spec_4b5b_zero_levels_trip_conformance():
     w[cfg.preamble_len + 20 * 15 + 3: cfg.preamble_len + 20 * 15 + 6] = 0.0
     wave = np.concatenate([w, np.zeros(500, np.float32)])
     x = wave[None]
-    _res, ok = decode_capture_spec(cfg, x, 2, max_frames=8, n_cand=32,
-                                   interpret=True)
+    _res, ok = decode_capture_spec(cfg, x, 2, max_frames=8, n_cand=32)
     assert not bool(np.asarray(ok)[0])
     # ... and the exact path the fallback re-decodes with must equal the
     # NumPy oracle frame-for-frame on this zero-level capture
@@ -258,7 +288,7 @@ def test_spec_4b5b_zero_levels_trip_conformance():
         enc.encode_frame(Frame.new_data(2, 1, 2, b"clean")),
         np.zeros(4000, np.float32)])
     _res2, ok2 = decode_capture_spec(cfg, clean[None], 2, max_frames=8,
-                                     n_cand=32, interpret=True)
+                                     n_cand=32)
     assert bool(np.asarray(ok2)[0])
 
 

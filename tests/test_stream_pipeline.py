@@ -33,7 +33,7 @@ def test_streaming_pipeline_sparse(use_native):
         got.extend(pipe.push(wave[i:i + 4096]))
     got.extend(pipe.flush())
     assert [f.data for f in got] == [f.data for f in frames]
-    # the point of the gate: only a fraction of the stream hit the TPU
+    # the point of the gate: only a fraction of the stream hit the device
     assert pipe.samples_shipped < 0.6 * pipe.samples_seen
     assert pipe.segments_decoded >= 6
 

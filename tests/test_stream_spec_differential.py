@@ -1,6 +1,5 @@
-"""StreamingDecodePipeline differential (VERDICT r4 item 3): the
-pipeline's segment decode now routes through decode_capture_fast (the
-speculative Pallas path on TPU).  Pin that (a) for every segment the
+"""StreamingDecodePipeline differential: the pipeline's segment decode
+routes through the speculative decoder.  Pin that (a) for every segment the
 pipeline actually ships, the speculative decoder's decisions equal the
 exact scan's, and (b) decode_capture_fast's bucket-padding + valid_len
 calling convention (what stream.py uses) decodes identically to the
@@ -15,7 +14,7 @@ import pytest
 from trackmaker_tpu.core.config import FOUR_B_FIVE_B, MANCHESTER, PhyConfig
 from trackmaker_tpu.core.framing import Frame
 from trackmaker_tpu.link.stream import StreamingDecodePipeline
-from trackmaker_tpu.phy import pallas_decode as pd
+from trackmaker_tpu.phy import spec_decode as pd
 from trackmaker_tpu.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu.phy.encoder import PhyEncoder
 
@@ -54,7 +53,7 @@ def _decisions(res):
 
 @pytest.mark.parametrize("coding", [MANCHESTER, FOUR_B_FIVE_B])
 def test_segment_decode_spec_matches_exact(coding):
-    """Every segment the pipeline ships: spec (interpret) == exact."""
+    """Every segment the pipeline ships: spec == exact."""
     cfg = PhyConfig(line_coding=coding)
     frames, wave = _sparse_capture(cfg, 5, seed=3)
     segments = []
@@ -84,7 +83,7 @@ def test_segment_decode_spec_matches_exact(coding):
                                max_frames=32, valid_len=n)
         spec, ok = pd.decode_capture_spec(
             cfg, jnp.asarray(padded)[None], 2, max_frames=32,
-            valid_len=jnp.asarray([n]), interpret=True)
+            valid_len=jnp.asarray([n]))
         assert bool(np.asarray(ok)[0])
         spec0 = jax.tree_util.tree_map(lambda a: a[0], spec)
         assert _decisions(spec0) == _decisions(exact)
@@ -127,7 +126,7 @@ def test_fast_decode_valid_len_padding(coding):
 @pytest.mark.parametrize("coding", [MANCHESTER, FOUR_B_FIVE_B])
 def test_packed_decoder_roundtrip(coding):
     """The one-readback packed segment decode (stream._packed_decoder +
-    _parse_packed, r5 latency fix) yields exactly decode_capture_fast's
+    _parse_packed) yields exactly decode_capture_fast's
     frames on the same padded segment."""
     from trackmaker_tpu.link.stream import (_bucket, _packed_decoder,
                                             _parse_packed)
@@ -137,8 +136,8 @@ def test_packed_decoder_roundtrip(coding):
     b = _bucket(n)
     padded = np.zeros(b + 1, np.float32)
     padded[:n] = wave
-    padded[b] = n                     # length rides in the buffer (r5)
-    fn = _packed_decoder(cfg, 32, interpret=True)
+    padded[b] = n                     # length rides in the buffer
+    fn = _packed_decoder(cfg, 32)
     arr = np.asarray(fn(padded, jnp.int32(2)))
     ok, got = _parse_packed(arr)
     assert ok

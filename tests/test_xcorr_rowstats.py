@@ -1,18 +1,15 @@
-"""Row-stats xcorr kernel (anchor-search primitive) vs dense corr.
+"""Row-stats xcorr (anchor-search primitive) vs dense corr.
 
-`pallas_xcorr_rowstats` feeds the equalizer's anchor peel
-(dsp/equalizer.py): per-128-lag-row (max corr, arg position) in one
-fused pass.  These tests pin the interpret-mode kernel against stats
-computed from the dense normalized correlation — including the
-first-max tie rule, the valid-lag mask on the final partial row, and a
-capture shorter than one lag tile."""
+`xcorr_row_stats` feeds the equalizer's anchor peel
+(dsp/equalizer.py): per-128-lag-row (max corr, arg position).  These
+tests pin it against stats computed in NumPy from the dense normalized
+correlation — including the first-max tie rule, the valid-lag mask on
+the final partial row, and a short capture."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from trackmaker_tpu.sync import auto_xcorr_row_stats
-from trackmaker_tpu.sync.correlate import normalized_xcorr
-from trackmaker_tpu.sync.pallas_xcorr import pallas_xcorr_rowstats
+from trackmaker_tpu.sync.correlate import normalized_xcorr, xcorr_row_stats
 
 
 def _dense_stats(x, pat):
@@ -32,8 +29,7 @@ def test_rowstats_matches_dense():
     for p0 in (500, 12_345, 39_000):          # incl. tail-row peak
         n = min(96, len(x) - p0)
         x[p0: p0 + n] += pat[:n]
-    rm_k, rp_k = pallas_xcorr_rowstats(jnp.asarray(x), pat, blk=8192,
-                                       interpret=True)
+    rm_k, rp_k = xcorr_row_stats(jnp.asarray(x), pat)
     rm_d, rp_d = _dense_stats(x, pat)
     r = len(rm_d)
     assert np.allclose(np.asarray(rm_k)[:r], rm_d, atol=1e-5)
@@ -53,8 +49,7 @@ def test_rowstats_ties_take_first():
     x = np.zeros(1024, np.float32)
     x[100:108] = 1.0          # two identical windows in one lag row
     x[110:118] = 1.0
-    rm, rp = pallas_xcorr_rowstats(jnp.asarray(x), pat, blk=1024,
-                                   interpret=True)
+    rm, rp = xcorr_row_stats(jnp.asarray(x), pat)
     assert int(np.asarray(rp)[0]) == 100
     rm_d, rp_d = _dense_stats(x, pat)
     assert int(rp_d[0]) == 100
@@ -65,6 +60,6 @@ def test_rowstats_short_capture_cpu_dispatch():
     pat = np.sign(rng.normal(size=60)).astype(np.float32)
     x = rng.normal(0, 0.2, 700).astype(np.float32)
     x[300:360] += pat
-    rm, rp = auto_xcorr_row_stats(jnp.asarray(x), pat)   # CPU path here
+    rm, rp = xcorr_row_stats(jnp.asarray(x), pat)
     j = int(np.argmax(np.asarray(rm)))
     assert int(np.asarray(rp)[j]) == 300

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Extended differential fuzz campaign: batched TPU decoder vs the NumPy
+"""Extended differential fuzz campaign: batched device decoder vs the NumPy
 oracle of the reference decoder, across random configs and corruptions.
 
 CI runs 12 seeds (tests/test_fuzz_differential.py); this tool runs an
@@ -8,10 +8,8 @@ arbitrary number for deeper soak testing:
     python tools/fuzz_campaign.py --seeds 100 [--coding manchester|4b5b]
                                    [--path exact|fast]
 
-``--path fast`` exercises `decode_capture_fast` instead of the exact
-scan (on CPU: 4B5B optimistic two-pass + fallback merge; on TPU it
-would take the speculative kernels — see tools/tpu_spec_soak.py for
-the on-chip campaign).
+``--path fast`` exercises `decode_capture_fast` (the speculative
+decoder with its exact fallback merge) instead of the exact scan.
 
 ``--path dd`` soaks the decision-directed equalized decode
 (dsp/equalizer.py:decode_capture_dd) over random 2-3-tap multipath
@@ -28,8 +26,6 @@ corrupts the bootstrap result).  Exact oracle equality is NOT the bar
 here: dd is a beyond-parity recovery path that usually decodes MORE
 than the reference behavior on echoic captures.
 
-Round-1 campaign: 280 trials, 0 mismatches.
-Round-2: tools/tpu_spec_soak.py adds the speculative-path soak.
 """
 
 import argparse

@@ -4,7 +4,7 @@ The reference's only fault injector is the physical room; its report
 gives frame-loss anecdotes (5-15% SNR-dependent, docs/proj/report.md:532).
 Here the channel is parameterized and the whole sweep — modulate, corrupt
 at every SNR, batch-decode, count bit/frame errors — is a few batched
-TPU programs.
+device programs.
 """
 
 from __future__ import annotations

@@ -119,7 +119,7 @@ def correlation_debug(samples: np.ndarray, sr: int,
     from trackmaker_tpu import sync as sync_mod
     pcfg = cfg or PhyConfig()
     pre = line_coding.preamble_waveform(pcfg)
-    corr = sync_mod.auto_xcorr(x, pre, correlate.preamble_energy(pre))
+    corr = sync_mod.normalized_xcorr(x, pre, correlate.preamble_energy(pre))
     return {"preamble corr": np.asarray(corr)}
 
 

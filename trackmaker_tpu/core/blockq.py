@@ -4,8 +4,8 @@ A dense bool mask over a long capture answers repeated first-hit
 queries (decoder candidate consumption, ASK update search, OFDM
 preamble walk).  The naive form — ``argmax(mask & (idx >= cursor))``
 per query — rescans the whole capture every scan step, and a global
-``jnp.nonzero(size=N)`` compaction measured ~4 ms per 400k-element
-call on this chip (CLAUDE.md).  The block form costs one reshape +
+``jnp.nonzero(size=N)`` compaction is a full sort-like pass per
+capture.  The block form costs one reshape +
 per-block ``any`` up front, then each query touches one `blk`-lane row
 plus the block-any vector.
 """

@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU acoustic-modem framework.
+"""Runtime configuration for the acoustic-modem framework.
 
 The reference keeps all tunables as compile-time constants
 (``src/utils/consts.rs:1-75``) and its own benchmark harness has to rewrite
@@ -38,7 +38,7 @@ class PhyConfig:
     line_coding: str = MANCHESTER
     correlation_threshold: float = 0.9  # src/phy/decoder.rs:57
 
-    # Decoder sizing (static shapes for the TPU decode program).
+    # Decoder sizing (static shapes for the device decode program).
     # max_frame_bytes mirrors src/phy/decoder.rs:61 (2x max payload).
     @property
     def max_frame_bytes(self) -> int:

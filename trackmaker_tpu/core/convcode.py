@@ -1,4 +1,4 @@
-"""Rate-1/2 K=7 convolutional code + Viterbi decoder, TPU-vectorized.
+"""Rate-1/2 K=7 convolutional code + Viterbi decoder, vectorized.
 
 The industry-standard (133, 171)_8 code.  Encoding is two XOR-of-shifts
 streams; Viterbi decoding is a ``lax.scan`` over time with the full
@@ -117,27 +117,23 @@ def conv_encode(bits: jax.Array) -> jax.Array:
     return jnp.stack([c0, c1], axis=-1).reshape(-1)
 
 
-# Trellis steps fused per scan iteration.  The radix-1 butterfly ACS
-# is sequencer-bound on TPU (~17.5 us/frame at batch 64 even with
-# unroll=8 — each step is a handful of tiny VPU ops); the butterfly
-# generalizes over k steps (pred^k(s) = 2^k (s mod 2^(6-k)) + j for
+# Trellis steps fused per scan iteration.  Each radix-1 butterfly ACS
+# step is a handful of tiny ops, so per-iteration overhead dominates;
+# the butterfly generalizes over k steps (pred^k(s) = 2^k (s mod 2^(6-k)) + j for
 # j in [0, 2^k)), so k steps fuse into ONE gather-free expand +
 # max/argmax with k-times fewer scan iterations and k-times fewer
 # traceback steps.  Decisions are bit-identical to radix 1: path
 # values keep the sequential f32 add order ((m + bm1) + bm2)..., and
 # the flattened argmax's smallest-index tie rule IS the sequential
 # rule (final-step choice breaks ties first — axis order (c_k .. c_1);
-# tests/test_convcode.py pins equality).  Env-tunable for on-chip A/B.
+# tests/test_convcode.py pins equality).  Env-tunable for A/B runs.
 import os as _os
 
 VITERBI_RADIX = int(_os.environ.get("TM_VITERBI_RADIX", "4"))
 assert VITERBI_RADIX in (1, 2, 4, 8)
 
-# Scan unroll in fused-block units (r5): at radix 4 the old
-# max(1, 8 // k) = 2 left ~65 XLA while-loop iterations per decode,
-# and the loop carries most of the per-iteration cost at these
-# (64, 2^k) shapes.  Env-tunable for the on-chip sweep
-# (tools/ab_viterbi.py); decisions are unroll-invariant.  Resolved
+# Scan unroll in fused-block units: max(1, 8 // k) by default.
+# Env-tunable for A/B runs; decisions are unroll-invariant.  Resolved
 # OUTSIDE the jit boundary (viterbi_decode) so in-process flips
 # retrace instead of hitting the cache.
 VITERBI_UNROLL = int(_os.environ.get("TM_VITERBI_UNROLL", "0"))  # 0=auto
@@ -177,10 +173,7 @@ def _viterbi_jit(received: jax.Array, n_bits: int,
     # GATHER-FREE add-compare-select: the shift-register trellis is a
     # butterfly — state s's two predecessors are 2(s % 32) and
     # 2(s % 32) + 1 (verified against _PRED), so metrics[_PRED] is
-    # jnp.tile(m.reshape(32, 2), (2, 1)).  The metrics[pred] gather
-    # this replaces was the scan's cost on TPU: 43.4 -> 23.8 us/frame
-    # at batch 64, and unroll=8 amortizes the remaining per-step
-    # overhead to 17.5 us/frame (2.5x total, r4 on-chip A/B).
+    # jnp.tile(m.reshape(32, 2), (2, 1)) — no metrics[pred] gather.
     def expand(acc, rt):
         """acc (64, *prev_choices) path values at the current level ->
         (64, 2, *prev_choices) after one more trellis step: new axis 1

@@ -1,7 +1,7 @@
-"""Forward error correction, vectorized for TPU.
+"""Forward error correction, vectorized.
 
 The reference has no FEC (its report lists 5-15% frame loss and leans on
-ARQ).  Batched array FEC is nearly free on TPU and moves the OFDM QPSK
+ARQ).  Batched array FEC is nearly free on the device and moves the OFDM QPSK
 cliff several dB:
 
 * **Hamming(7,4)** with single-error correction: encode is a bit-matrix

@@ -5,7 +5,7 @@ Byte layout mirrors the reference (``src/phy/frame.rs:74-102``): big-endian
 type/seq/src/dst, then data.  Two implementations live here:
 
 * a host-side ``Frame`` dataclass used by the MAC/NET runtime, and
-* batched JAX builders/parsers used inside the TPU encode/decode programs,
+* batched JAX builders/parsers used inside the device encode/decode programs,
   which operate on padded ``uint8[B, 7+max_len]`` arrays with explicit
   per-frame lengths (pad-and-mask — no dynamic shapes under jit).
 """

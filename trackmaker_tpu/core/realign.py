@@ -1,10 +1,7 @@
 """Gather-free dynamic window realignment.
 
-Vmapped ``dynamic_slice`` with traced starts lowers on TPU to
-per-element gathers at ~2-21 ns/element (measured across the ASK
-receiver — see docs/BENCHMARKS.md; large contiguous slices like the
-OFDM symbol windows lower acceptably, so this matters most for MANY
-SMALL windows), while row-gathers of 512-aligned rows are ~free.  The
+Vmapped ``dynamic_slice`` with traced starts lowers to per-element
+gathers, while row-gathers of 512-aligned rows move whole rows.  The
 recipe: fetch 512-aligned rows with ``jnp.take``, then either mask
 (for order-insensitive consumers) or realign exactly with
 :func:`shift_realign`.

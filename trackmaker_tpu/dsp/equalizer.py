@@ -2,7 +2,7 @@
 the line-coded PHY.
 
 The reference has no equalizer (its decoder fails on echoic channels the
-same way ours does: `docs/BENCHMARKS.md` robustness table); this module
+same way ours does); this module
 is beyond-parity capability.  Measured motivation (see
 tests/test_equalizer.py): a 2-path channel with echo amplitude 0.5 at
 7-sample delay drops the stock decoder from 8/8 to 0/8 frames; with this
@@ -11,21 +11,20 @@ front-end it decodes 8/8 again.
 Design (one fixed-shape jit, vmap-able):
 
 1. *Anchor*: the strongest normalized preamble correlation in the
-   capture (backend-dispatched — the Pallas kernel on TPU).  Any
+   capture (per-128-lag-row maxima from sync.xcorr_row_stats).  Any
    frame's preamble works: the channel is LTI over a capture.
 2. *Channel estimate*: LS fit of ``n_ch`` taps (with ``K0`` acausal
    margin, so an anchor locked onto either path still brackets the
    response) against the KNOWN preamble waveform.  The normal-equation
    solve folds into a single static host matrix: ``h = M @ rx_window``
    with ``M = (A^T A + eps I)^-1 A^T`` precomputed from the preamble —
-   one tiny MXU matmul at runtime, no linear solve on device.
+   one tiny matmul at runtime, no linear solve on device.
 3. *MMSE inversion*: ``G = conj(H) / (|H|^2 + lam)`` in the frequency
    domain, with ``lam`` the measured fit-residual-to-signal ratio (the
    actual noise level, not a guess), truncated to a two-sided FIR.
 4. *Apply*: blocked banded matmul (slab rows x a Toeplitz band built
-   from the traced taps) — no ``conv_general_dilated`` anywhere, which
-   would take minutes of remote compile on this chip (CLAUDE.md), and
-   no host-side pattern requirement, which the Pallas xcorr kernel has.
+   from the traced taps) — the taps are traced values, so no
+   host-side pattern is needed.
 5. *Gate*: if the anchor quality is below ``min_quality`` (no clean
    preamble to train on), the capture passes through untouched.
 
@@ -100,10 +99,8 @@ def estimate_channel(cfg: PhyConfig, rx: jax.Array, anchor: jax.Array):
     to SHIFT the window for such anchors, training on garbage.
 
     The window fetch is an aligned 128-row gather + exact lane realign
-    (core.realign recipe): a traced-start ``dynamic_slice`` lowers to
-    per-element gathers at ~10 ns/element on this chip, which at
-    batch 32 x 4 anchors x ~900-sample windows was ~1.2 ms — most of
-    the equalizer's non-anchor cost (r5 A/B).  ``shift_realign`` is
+    (core.realign recipe) instead of a traced-start ``dynamic_slice``
+    (per-element gathers under vmap).  ``shift_realign`` is
     f32-bit-exact, so ``b`` (and every downstream tap) is unchanged."""
     from trackmaker_tpu.core import realign
     m, a, i0, rows = _ls_solver_np(cfg)
@@ -121,8 +118,9 @@ def estimate_channel(cfg: PhyConfig, rx: jax.Array, anchor: jax.Array):
     ridx = q + jnp.arange(nrow, dtype=jnp.int32)
     src = jnp.take(grid, ridx, axis=0, mode="clip").reshape(1, nrow * 128)
     b = realign.shift_realign(src, (start - 128 * q)[None], rows8)[0, :rows]
-    h = jnp.asarray(m) @ b
-    fit = jnp.asarray(a) @ h
+    hi = jax.lax.Precision.HIGHEST
+    h = jnp.dot(jnp.asarray(m), b, precision=hi)
+    fit = jnp.dot(jnp.asarray(a), h, precision=hi)
     res = jnp.mean((fit - b) ** 2)
     sig = jnp.maximum(jnp.mean(b ** 2), 1e-12)
     lam = jnp.clip(res / sig, 1e-4, 1.0)
@@ -141,10 +139,10 @@ def _mmse_taps(h: jax.Array, lam: jax.Array) -> jax.Array:
 
 def _apply_fir(rx: jax.Array, g_t: jax.Array) -> jax.Array:
     """eq[n] = sum_lag g_t[lag + L_HALF] * rx[n - K0 - lag] as a blocked
-    banded matmul (traced taps; MXU-friendly; conv-free).
+    banded matmul (traced taps).
 
     128-wide blocks, four [nblk, 128] @ [128, 128] matmuls on shifted
-    full-width ROW views (r5 rework): eq[128b + c] = sum_d p[d]
+    full-width ROW views: eq[128b + c] = sum_d p[d]
     xs[128b + c + d] with d < 385, and c + d < 512 spans exactly rows
     b..b+3, so B_s[u, c] = p[128s + u - c] (masked to the band).  At
     BLK=512 the dense band carried 57% structural zeros (2.3x FLOP
@@ -171,7 +169,8 @@ def _apply_fir(rx: jax.Array, g_t: jax.Array) -> jax.Array:
         d = s * bw + uu - cc
         band_s = jnp.where((d >= 0) & (d < l_gt),
                            p[jnp.clip(d, 0, l_gt - 1)], 0.0)
-        term = rows[s: s + nblk] @ band_s
+        term = jnp.dot(rows[s: s + nblk], band_s,
+                       precision=jax.lax.Precision.HIGHEST)
         eq = term if eq is None else eq + term
     return eq.reshape(-1)[:t]
 
@@ -193,8 +192,7 @@ def equalize_capture(cfg: PhyConfig, rx: jax.Array,
     peak correlates more strongly (e.g. an attenuated first frame).
 
     The peel runs over per-128-lag-row (max, argmax) stats
-    (sync.auto_xcorr_row_stats — one fused Pallas pass on TPU; the
-    dense correlation never reaches HBM, r5 fusion) and suppression is
+    (sync.xcorr_row_stats) and suppression is
     row-granular: a row is consumed when ITS max lies within a
     preamble of a chosen anchor, so a secondary in-row peak can be
     shadowed by a stronger one < 128 lags away — anchors are
@@ -210,14 +208,14 @@ def equalize_capture(cfg: PhyConfig, rx: jax.Array,
     # K0-tap acausal margin, and the decoder re-syncs on the equalized
     # output, so anchor phase never reaches a decode decision.  The
     # quality number shrinks (partial level overlap at odd phases), so
-    # the min_quality gate sees ~0.6-0.8x its full-rate value — A/B
-    # flag, default off until the on-chip run settles it.
+    # the min_quality gate sees ~0.6-0.8x its full-rate value — off
+    # by default.
     dec = _os.environ.get("TM_EQ_ANCHOR_DEC", "0") == "1"
     if dec:
-        rowmax, rowpos = sync_mod.auto_xcorr_row_stats(rx[::2], pre[::2])
+        rowmax, rowpos = sync_mod.xcorr_row_stats(rx[::2], pre[::2])
         rowpos = rowpos * 2             # back to full-rate positions
     else:
-        rowmax, rowpos = sync_mod.auto_xcorr_row_stats(rx, pre)
+        rowmax, rowpos = sync_mod.xcorr_row_stats(rx, pre)
     sup = l_pre
     cands, quals = [], []
     rm = rowmax
@@ -246,10 +244,9 @@ def decode_capture_eq(cfg: PhyConfig, samples, local_addr,
     """Equalize, then decode on the fastest sound path.
 
     The equalizer is a pure FIR front-end, so it composes with
-    :func:`trackmaker_tpu.phy.decoder.decode_capture_fast` — the Pallas
-    speculative decoder on TPU (~4x the exact scan; exact re-decode on
-    overflow/nonconformance), the oracle-parity scan on CPU.  Results
-    equal the exact path up to slot compaction."""
+    :func:`trackmaker_tpu.phy.decoder.decode_capture_fast` — the
+    speculative decoder (exact re-decode on overflow/nonconformance).
+    Results equal the exact path up to slot compaction."""
     from trackmaker_tpu.phy.decoder import decode_capture_fast
     eq, _info = equalize_capture(cfg, jnp.asarray(samples, jnp.float32))
     return decode_capture_fast(cfg, eq, local_addr, max_frames=max_frames)
@@ -315,8 +312,8 @@ _apply_fir_jit = jax.jit(_apply_fir)
 def _apply_taps_decode(cfg: PhyConfig, rx: jax.Array, g_t: jax.Array,
                        local_addr, max_frames: int):
     """Apply refit taps, then decode on the fastest sound path (the
-    speculative Pallas decoder on TPU — it multiplies through every
-    decision-directed iteration, VERDICT r3 item 5)."""
+    speculative decoder — it multiplies through every decision-directed
+    iteration)."""
     from trackmaker_tpu.phy.decoder import decode_capture_fast
     return decode_capture_fast(cfg, _apply_fir_jit(rx, g_t), local_addr,
                                max_frames=max_frames)

@@ -7,7 +7,7 @@ tracking — same as the reference).  Two batched strategies:
 * :func:`decode_with_clock_search` — resample the capture at a grid of
   candidate ratios (one batched resample + one vmapped decode) and keep
   the ratio that yields the most CRC-valid frames.  Robust, brute-force,
-  embarrassingly parallel: exactly the kind of search a TPU makes free.
+  embarrassingly parallel: exactly the kind of search a batch device makes free.
 * :func:`estimate_clock_ppm` — closed-form estimate from detected
   preamble spacing vs the nominal frame pitch, for telemetry or to
   center a narrow search grid.
@@ -78,8 +78,7 @@ def estimate_frame_ppm(cfg: PhyConfig, window, n_levels: int,
     shifts = jnp.arange(-max_shift, max_shift + 1)
     n_s = 2 * max_shift + 1
     # level means at shift s are a shifted contiguous view reshaped to
-    # (n_levels, spb) — no gathers (XLA gathers are catastrophically
-    # slow on TPU; see phy/pallas_decode.py)
+    # (n_levels, spb) — no gathers
     xp = jnp.pad(x, (max_shift, max_shift + spb))
 
     def metric_at(s):
@@ -99,7 +98,8 @@ def estimate_frame_ppm(cfg: PhyConfig, window, n_levels: int,
     onehot = (res[:, None] == jnp.arange(spb)[None, :]).astype(
         jnp.float32)                                  # (S, spb)
     cnt = jnp.maximum(jnp.sum(onehot, axis=0), 1.0)
-    mp = (mseg.T @ onehot) / cnt[None, :]             # (segments, spb)
+    mp = jnp.dot(mseg.T, onehot, precision=jax.lax.Precision.HIGHEST) \
+        / cnt[None, :]                                # (segments, spb)
     # circular centroid -> offset phase in samples, (-spb/2, spb/2]
     ang = 2.0 * jnp.pi * jnp.arange(spb) / spb
     z = jnp.sum(mp * jnp.exp(1j * ang)[None, :], axis=-1)
@@ -145,15 +145,15 @@ def decode_with_timing_gate(
     sequential consumption walk suppressing embedded-preamble hits."""
     from trackmaker_tpu.phy import line_coding
     from trackmaker_tpu.phy.decoder import decode_capture_fast
-    from trackmaker_tpu.phy.pallas_decode import _extract_candidates
-    from trackmaker_tpu.sync import auto_xcorr
+    from trackmaker_tpu.phy.spec_decode import _extract_candidates
+    from trackmaker_tpu.sync import normalized_xcorr
     from trackmaker_tpu.sync.correlate import preamble_energy
 
     x = jnp.asarray(samples, jnp.float32)
     res = decode_capture_fast(cfg, x, local_addr, max_frames=max_frames)
 
     pre_np = line_coding.preamble_waveform(cfg)
-    corr = auto_xcorr(x, pre_np, preamble_energy(pre_np))
+    corr = normalized_xcorr(x, pre_np, preamble_energy(pre_np))
     hits = np.array(corr >= cfg.correlation_threshold)
     # drop hits covered by a valid frame's extent
     valid = np.asarray(res.valid)

@@ -6,7 +6,7 @@ medium is an explicit discrete-time simulation (sample-accurate, chunk
 driven) and every node is a deterministic tick-based state machine — the
 same FSM states and timings (DIFS/slot/ACK-timeout in samples instead of
 wall-clock sleeps), but reproducible and runnable at far beyond real time.
-PHY encode/decode inside the nodes is the batched TPU path.
+PHY encode/decode inside the nodes is the batched device path.
 """
 
 from trackmaker_tpu.link.audio import AppState, AudioEndpoint

@@ -2,10 +2,9 @@
 
 Go-Back-N (:mod:`trackmaker_tpu.link.gbn`) retransmits the whole
 remaining window when anything is lost; on a channel whose losses are
-independent per frame (the measured regime: AWGN frame loss with a CRC
-gate, docs/BENCHMARKS.md "PHY robustness") that wastes airtime linear
-in the window size.  Selective repeat retransmits ONLY the frames the
-receiver is missing.
+independent per frame (AWGN frame loss with a CRC gate) that wastes
+airtime linear in the window size.  Selective repeat retransmits ONLY
+the frames the receiver is missing.
 
 Wire format stays inside the reference frame codec
 (src/phy/frame.rs:33-41): a SACK is an ACK frame whose ``sequence`` is

@@ -2,7 +2,7 @@
 
 Host-side runtime (none of this is compute-bound; the reference's report
 itself notes CSMA/ARQ latency dominates, docs/proj/report.md:535).  The
-TPU boundary stays at the PHY — this layer consumes/produces packet bytes
+device boundary stays at the PHY — this layer consumes/produces packet bytes
 carried by ``trackmaker_tpu.link``.
 """
 

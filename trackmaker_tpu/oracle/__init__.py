@@ -2,7 +2,7 @@
 
 These transliterate the *behavior* of the Rust reference (decision for
 decision, including consumption rules and threshold tie-breaking) so the
-batched TPU programs in ``trackmaker_tpu.phy`` can be differentially
+batched device programs in ``trackmaker_tpu.phy`` can be differentially
 tested without running the Rust binary.
 """
 

@@ -2,7 +2,7 @@
 
 Sequential transliteration of the sender (ask.rs:571-638) and the
 receiver's sync/decode state machine (ask.rs:668-796), used to
-differentially test the batched TPU modem in ``trackmaker_tpu.phy.ask``.
+differentially test the batched device modem in ``trackmaker_tpu.phy.ask``.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Behavioral transliteration of the reference pipeline (``src/phy/encoder.rs``,
 ``src/phy/decoder.rs``, ``src/phy/line_coding.rs``) used to differentially
-test the batched TPU implementation.  Kept deliberately sequential and
+test the batched device implementation.  Kept deliberately sequential and
 simple — this is the spec, not the fast path.
 """
 

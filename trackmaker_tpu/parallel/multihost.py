@@ -6,7 +6,7 @@ multi-host story is pure data parallelism: every host contributes its
 local captures, the global mesh shards the batch over `dp`, each host
 decodes its own shard, results stay host-local.  No collective is on
 the decode path at all (the only cross-host traffic is process
-bring-up barriers), which is exactly how an ICI/DCN-aware layout should
+bring-up barriers), which is exactly how a network-aware layout should
 place this workload.
 
 Bring-up is plain ``jax.distributed``: every process calls

@@ -5,7 +5,7 @@ frames — each frame is located by its normalized chirp correlation and
 demodulated independently — so the sharded decode is a SINGLE pass
 (contrast `parallel/stream.py`'s consumed-until fixpoint for the
 line-coded PHY): split the capture into one block per shard, pull the
-right neighbor's head over ICI as a halo wide enough to finish any
+right neighbor's head as a halo wide enough to finish any
 frame that starts inside the owned block, find + demodulate per shard,
 and keep exactly the frames whose preamble starts in the owned region.
 A frame straddling a shard boundary is decoded (fully) by the shard

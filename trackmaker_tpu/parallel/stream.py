@@ -5,7 +5,7 @@ between chunks so detections never straddle a boundary
 (src/phy/decoder.rs:89-109).  Sharding a capture's *time* axis across
 devices needs the same overlap arithmetic, device-to-device: every shard
 pulls a halo (one max-size frame + preamble + sync margin) from its right
-neighbor over ICI with ``ppermute`` and decodes its extended block
+neighbor with ``ppermute`` and decodes its extended block
 locally, attempting exactly the candidates whose preamble starts inside
 its own region (``scan_limit``).
 
@@ -28,7 +28,7 @@ blocked == sequential decode decision-for-decision
 (tests/test_parallel_adversarial.py).
 
 This is the blockwise/"long-context" treatment of unbounded sample
-streams; the same function handles one long recording on one chip by
+streams; the same function handles one long recording on one device by
 folding blocks into the batch axis.
 """
 
@@ -70,12 +70,12 @@ def _mask_mine(res: DecodedFrames, block: int, gstart_base) -> DecodedFrames:
 
 
 def _sharded_spec_run(cfg, blocks, local_addr, flat_mesh, t, block,
-                      max_frames_per_block, n_cand, interpret):
+                      max_frames_per_block, n_cand):
     """shard_map body for the speculative sharded decode: phase A
-    (correlation + attempt kernel + epilogue, phy/pallas_decode.py) runs
-    ONCE per shard; the consumed-until seam fixpoint re-runs only the
-    SMEM walk kernel, passing consumption endpoints around the `sp` ring
-    with ppermute — the multi-chip analogue of `_decode_blocked_spec`.
+    (correlation + attempts + epilogue, phy/spec_decode.py) runs ONCE
+    per shard; the consumed-until seam fixpoint re-runs only the walk,
+    passing consumption endpoints around the `sp` ring with ppermute —
+    the multi-device analogue of `_decode_blocked_spec`.
 
     Returns ``(frames[n_shards, K], ok[n_shards])``; any False in `ok`
     (candidate overflow / 4B5B conformance flag on an attempted
@@ -83,7 +83,7 @@ def _sharded_spec_run(cfg, blocks, local_addr, flat_mesh, t, block,
     Correctness argument: identical to `_decode_blocked_spec` — the walk
     over exact per-candidate fields converges left-to-right to the
     sequential cursor walk (module docstring)."""
-    from trackmaker_tpu.phy.pallas_decode import (
+    from trackmaker_tpu.phy.spec_decode import (
         _spec_compact, _spec_phase_a, _spec_walk_prepare,
         _spec_walk_query)
 
@@ -93,10 +93,8 @@ def _sharded_spec_run(cfg, blocks, local_addr, flat_mesh, t, block,
 
     @jax.jit
     @functools.partial(
-        # check_vma=False: pallas_call's out ShapeDtypeStructs carry no
-        # `vma` annotation, which the varying-axes checker rejects
         jax.shard_map, mesh=flat_mesh, in_specs=spec,
-        out_specs=(out_struct, P("sp")), check_vma=False)
+        out_specs=(out_struct, P("sp")))
     def run(xb):                       # xb: [1, block] per shard
         nsp = jax.lax.axis_size("sp")
         idx = jax.lax.axis_index("sp")
@@ -109,7 +107,7 @@ def _sharded_spec_run(cfg, blocks, local_addr, flat_mesh, t, block,
         vlens = jnp.reshape(vlen, (1,)).astype(jnp.int32)
 
         a = _spec_phase_a(cfg, ext, jnp.asarray(local_addr, jnp.int32),
-                          n_cand, vlens, interpret)
+                          n_cand, vlens)
         limit = (vlens * 0 + block).astype(jnp.int32)
         prep = _spec_walk_prepare(a.fields, limit, max_frames_per_block)
 
@@ -167,12 +165,11 @@ def decode_blocked_sharded(
     Returns DecodedFrames with [n_blocks * K] slots and *global* start
     indices.
 
-    On TPU with a kernel-supported config the per-shard decode routes
-    through the speculative Pallas decoder (`_sharded_spec_run`),
-    falling back to the exact scan path when any shard overflows its
-    candidate table or trips a 4B5B conformance flag.  `use_spec=True`
-    forces the speculative path (Pallas interpret mode off-TPU — used
-    by the CPU-mesh dry run and tests); ``False`` forces the exact path.
+    Configurations the speculative decoder covers route the per-shard
+    decode through it (`_sharded_spec_run`), falling back to the exact
+    scan path when any shard overflows its candidate table or trips a
+    4B5B conformance flag.  ``use_spec=False`` forces the exact path
+    (the reference the tests compare the speculative one against).
     """
     x = jnp.asarray(capture, jnp.float32)
     t = x.shape[-1]
@@ -186,15 +183,13 @@ def decode_blocked_sharded(
     flat_mesh = Mesh(mesh.devices.reshape(-1), axis_names=("sp",))
     spec = P("sp", None)
 
-    from trackmaker_tpu.phy.decoder import _spec_supported
-    from trackmaker_tpu.phy.pallas_decode import spec_supported_cfg
+    from trackmaker_tpu.phy.spec_decode import spec_supported_cfg
     if use_spec is None:
-        use_spec = _spec_supported(cfg)
+        use_spec = spec_supported_cfg(cfg)
     if use_spec and spec_supported_cfg(cfg):
-        interpret = jax.default_backend() != "tpu"
         out, ok = _sharded_spec_run(
             cfg, blocks, local_addr, flat_mesh, t, block,
-            max_frames_per_block, n_cand, interpret)
+            max_frames_per_block, n_cand)
         if bool(np.asarray(ok).all()):
             return jax.tree_util.tree_map(
                 lambda a: a.reshape((-1,) + a.shape[2:]), out)
@@ -206,7 +201,7 @@ def decode_blocked_sharded(
     def run(xb):                       # xb: [1, block] per shard
         nsp = jax.lax.axis_size("sp")
         idx = jax.lax.axis_index("sp")
-        # pull left edge of right neighbor as our halo (ICI ppermute)
+        # pull left edge of right neighbor as our halo (ppermute)
         edge = xb[:, :halo]
         right_halo = jax.lax.ppermute(
             edge, "sp", [((i + 1) % nsp, i) for i in range(nsp)])
@@ -269,10 +264,9 @@ def _out_struct():
 
 def _overlapping_blocks(x, t: int, n_blocks: int, block: int, halo: int):
     """[n_blocks, block+halo] overlapping windows of x (length t) via
-    shifted reshapes — a general XLA gather here measured 235 ms for a
-    28.8M-sample capture on v5e vs 17 ms for this construction (the
-    windows are just a reshape of the base blocks plus halo columns
-    sliced from ceil(halo/block) shifted copies)."""
+    shifted reshapes instead of a general gather (the windows are just a
+    reshape of the base blocks plus halo columns sliced from
+    ceil(halo/block) shifted copies)."""
     nxtra = -(-halo // block)
     xp = jnp.pad(x, (0, block * (n_blocks + nxtra) - t))
     parts = [xp[: n_blocks * block].reshape(n_blocks, block)]
@@ -333,18 +327,16 @@ def _decode_blocked_jit(cfg, x, local_addr, n_blocks,
 
 
 def _decode_blocked_spec(cfg, x, local_addr, n_blocks,
-                         max_frames_per_block, t, n_cand,
-                         interpret=False):
-    """Blockwise decode through the speculative Pallas decoder, FLAT:
-    the capture is correlated ONCE as one stream (no halo duplication,
-    no (n_blocks, block+halo) windowed copy — that copy alone measured
-    ~17 ms for a 600 s capture), the per-128-lag hit rows reshape into
-    per-block candidate tables with GLOBAL positions, and the attempt
-    kernel DMAs its slabs straight from the single shared buffer — a
-    frame near a block seam just reads the following samples.  Blocks
-    exist only for the walk: per-block cursors/limits are global
-    sample positions, and the consumed-until seam fixpoint re-runs
-    only the tiny SMEM walk kernel until cursors converge.
+                         max_frames_per_block, t, n_cand):
+    """Blockwise decode through the speculative decoder, FLAT: the
+    capture is correlated ONCE as one stream (no halo duplication, no
+    (n_blocks, block+halo) windowed copy), the per-128-lag hit rows
+    reshape into per-block candidate tables with GLOBAL positions, and
+    every attempt reads its window straight from the single shared
+    buffer — a frame near a block seam just reads the following
+    samples.  Blocks exist only for the walk: per-block cursors/limits
+    are global sample positions, and the consumed-until seam fixpoint
+    re-runs only the walk until cursors converge.
 
     Returns ``(frames, ok)``; `ok=False` (candidate-table overflow or a
     4B5B conformance flag on an *attempted* candidate in the converged
@@ -354,7 +346,7 @@ def _decode_blocked_spec(cfg, x, local_addr, n_blocks,
     converged fixpoint whose final walks are all conformant reproduces
     the sequential cursor walk exactly (same argument as the module
     docstring, with 'decode' = 'walk over exact per-candidate fields')."""
-    from trackmaker_tpu.phy.pallas_decode import (
+    from trackmaker_tpu.phy.spec_decode import (
         _spec_compact, _spec_phase_a, _spec_walk_prepare,
         _spec_walk_query)
 
@@ -365,8 +357,7 @@ def _decode_blocked_spec(cfg, x, local_addr, n_blocks,
     vlens = jnp.full((n_blocks,), t, jnp.int32)
 
     a = _spec_phase_a(cfg, xf, jnp.asarray(local_addr, jnp.int32),
-                      n_cand, vlens, interpret,
-                      flat_blocks=(n_blocks, block))
+                      n_cand, vlens, flat_blocks=(n_blocks, block))
     limit = starts + block
     prep = _spec_walk_prepare(a.fields, limit, max_frames_per_block)
 
@@ -410,7 +401,7 @@ def _decode_blocked_spec(cfg, x, local_addr, n_blocks,
 _decode_blocked_spec_jit = jax.jit(
     _decode_blocked_spec,
     static_argnames=("cfg", "n_blocks", "max_frames_per_block", "t",
-                     "n_cand", "interpret"))
+                     "n_cand"))
 
 
 def decode_blocked_single_chip(
@@ -421,18 +412,18 @@ def decode_blocked_single_chip(
     max_frames_per_block: int = 32,
     n_cand: int = 128,
 ) -> DecodedFrames:
-    """Same blockwise decomposition vmapped on one chip — the batched
-    form for very long captures on one device (fully jitted; pass a
-    device-resident array to avoid re-uploading the capture).
+    """Same blockwise decomposition on one device — the batched form
+    for very long captures (fully jitted; pass a device-resident array
+    to avoid re-uploading the capture).
 
-    On TPU with a kernel-supported config this routes through the
-    speculative decoder (`_decode_blocked_spec`), falling back to the
-    exact scan path when any block overflows its candidate table or
-    trips a 4B5B conformance flag."""
+    Configurations the speculative decoder covers route through it
+    (`_decode_blocked_spec`), falling back to the exact scan path when
+    any block overflows its candidate table or trips a 4B5B
+    conformance flag."""
     x = jnp.asarray(capture, jnp.float32)
     t = int(x.shape[-1])
-    from trackmaker_tpu.phy.decoder import _spec_supported
-    if _spec_supported(cfg):
+    from trackmaker_tpu.phy.spec_decode import spec_supported_cfg
+    if spec_supported_cfg(cfg):
         res, ok = _decode_blocked_spec_jit(
             cfg, x, local_addr, n_blocks, max_frames_per_block, t, n_cand)
         if bool(np.asarray(ok)):

@@ -1,4 +1,4 @@
-"""ASK/chirp modem as a batched TPU program (BASELINE config 1).
+"""ASK/chirp modem as a batched device program (BASELINE config 1).
 
 Reference: ``examples/ask.rs`` (itself a port of the course's
 ``docs/public/SamplePHY.m``): 10 kHz carrier ASK at 44 samples/bit
@@ -7,7 +7,7 @@ detector, a sliding 440-tap chirp correlator with local-max peak picking,
 and coherent demodulation (multiply-by-carrier + 11-tap smoothing +
 per-bit integration over samples 10..30).
 
-TPU design — same two-phase shape as the frame decoder:
+Batched design — same two-phase shape as the frame decoder:
 
 * dense phase: EMA power is a first-order linear recurrence
   (``associative_scan``), the chirp correlator is one convolution, and the
@@ -22,7 +22,7 @@ The building blocks (dense arrays, warmup correlation, record chain,
 first-update query, demod window) are module-level functions shared with
 the speculative batched receiver in :mod:`trackmaker_tpu.phy.ask_spec`,
 which replaces the sequential scan with a per-candidate successor table
-plus an SMEM walk — op-for-op the same decisions, ~10x the throughput.
+plus a pointer-chase walk — op-for-op the same decisions.
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def dense_arrays(cfg: AskConfig, rx: jax.Array):
     start, matching the reference's zero-initialized FIFO)."""
     from trackmaker_tpu import sync as sync_mod
     power = ema_power(rx, cfg.power_alpha)
-    sync = sync_mod.auto_sliding_dot_scaled(
+    sync = sync_mod.sliding_dot_scaled(
         rx, _chirp_np(cfg), 1.0 / cfg.sync_divisor)
     upd_ok = (sync > cfg.sync_power_factor * power) & (
         sync > cfg.sync_abs_threshold)
@@ -169,7 +169,7 @@ def _warmup_band_np(cfg: AskConfig) -> np.ndarray:
     """Banded Toeplitz operator for the warmup correlations: the FIFO
     holds the newest p+1 samples at its TAIL, so
     out[p] = sum_{k<=p} slab[k] * pre[k + L-1-p]  <=>  slab @ W with
-    W[k, p] = pre[k + L-1-p] for k <= p (one small MXU matmul instead
+    W[k, p] = pre[k + L-1-p] for k <= p (one small matmul instead
     of 440 vmapped dynamic slices)."""
     pre_host = _chirp_np(cfg)
     l_pre = cfg.preamble_len
@@ -205,11 +205,9 @@ def run_chain(cfg: AskConfig, sync_pad, upd_pad, chain_window,
 
     The warmup overlap is a contiguous PREFIX of the window (i0 >=
     cursor always), so the substitution is a dynamic_slice of the
-    padded warmup arrays + an elementwise select.  The previous
-    index-math formulation (``sync_w[woff_c]`` with per-candidate
-    indices) lowered under the double vmap to a pathological
-    per-element gather — measured ~22 ms of a 25 ms phase B at
-    B=8 x C=97; this form is ~10x cheaper."""
+    padded warmup arrays + an elementwise select, not an index-math
+    ``sync_w[woff_c]`` with per-candidate indices (which lowers under
+    the double vmap to a per-element gather)."""
     l_pre = cfg.preamble_len
     idx = i0 + jnp.arange(chain_window, dtype=jnp.int32)
     sp = jax.lax.dynamic_slice(sync_pad, (i0,), (chain_window,))
@@ -247,8 +245,8 @@ def run_chain(cfg: AskConfig, sync_pad, upd_pad, chain_window,
 
 
 # Two-level block index for "first update >= cursor" queries — shared
-# generic implementation in core/blockq.py (a global nonzero compaction
-# measured ~4ms/capture on TPU).
+# generic implementation in core/blockq.py (instead of a global nonzero
+# compaction).
 upd_block_tables = blockq.block_tables
 first_upd_from = blockq.first_set_from
 
@@ -264,10 +262,9 @@ def _demod_weights_np(cfg: AskConfig) -> np.ndarray:
                 = prod @ W[:, i]
 
     Both stages are linear, so the composition is exact up to f32
-    summation order.  As a matmul the whole post-pass rides the MXU;
-    the previous formulation (conv + ``smooth[bit_idx]``) paid a
-    doubly-vmapped fancy gather per slot — the same per-element-gather
-    lowering that cost 22 of 25 ms in phase B (docs/BENCHMARKS.md)."""
+    summation order.  As a matmul the whole post-pass is one product
+    per slot instead of a conv + a doubly-vmapped ``smooth[bit_idx]``
+    fancy gather."""
     n = cfg.frame_samples
     h = cfg.smooth_half
     w = np.zeros((n, cfg.coded_bits), np.float32)
@@ -309,7 +306,8 @@ def demod_slot(cfg: AskConfig, rx_pad, car, weights, peak, ok):
     smooth+integrate weight matmul, then the 1..100 frame-id filter."""
     win = jax.lax.dynamic_slice(
         rx_pad, (jnp.clip(peak + 1, 0),), (cfg.frame_samples,))
-    sums = (win * car) @ weights                   # (coded_bits,)
+    sums = jnp.dot(win * car, weights,
+                   precision=jax.lax.Precision.HIGHEST)  # (coded_bits,)
     return _demod_decisions(cfg, sums > 0.0, peak, ok)
 
 
@@ -331,8 +329,8 @@ def _demod_dense_tables_np(cfg: AskConfig):
     ones(nsm)/nsm placed at bit_lo - h + c*spb.  So the whole post-pass
     reduces to two dense 30-tap sliding dots plus a per-slot strided
     108-element pick — no per-slot 4752-sample gather, no [4752, 108]
-    matmul (see docs/BENCHMARKS.md: the doubly-vmapped window slice is
-    the per-element-gather lowering)."""
+    matmul (the doubly-vmapped window slice lowers to per-element
+    gathers)."""
     import math
     fhz = cfg.carrier_hz
     if abs(fhz - round(fhz)) > 1e-9:
@@ -375,8 +373,8 @@ def demod_dense(cfg: AskConfig, rx: jax.Array):
     pad = cfg.frame_samples + l
     xs = jnp.concatenate([rx * sw, jnp.zeros(pad, jnp.float32)])
     xc = jnp.concatenate([rx * cw, jnp.zeros(pad, jnp.float32)])
-    ds = sync_mod.auto_sliding_dot_scaled(xs, k, 1.0)[l - 1:]
-    dc = sync_mod.auto_sliding_dot_scaled(xc, k, 1.0)[l - 1:]
+    ds = sync_mod.sliding_dot_scaled(xs, k, 1.0)[l - 1:]
+    dc = sync_mod.sliding_dot_scaled(xc, k, 1.0)[l - 1:]
     return ds, dc
 
 
@@ -400,13 +398,12 @@ def demod_slots_dense(cfg: AskConfig, ds, dc, s_per, c_per, peaks, oks):
 
     ``ds`` reshaped to [n, samples_per_bit] rows makes a slot's picks
     ``ds[q0 + spb*c]`` a CONTIGUOUS run of coded_bits rows at the single
-    column ``q0 % spb`` (row ``q0//spb + c`` for bit c).  Fetching those
-    rows one at a time still pays per-row gather overhead (124k tiny
-    rows measured 2.5 ms/batch-16), so rows group into 8-row SUPER-rows
-    — 3.6x fewer, 352-element fetches — and the residual (row realign,
-    column pick) is one fused double-one-hot einsum: exactly one 1.0
-    per (row, column) pair, so the pick is exact at HIGHEST precision
-    (measured 0.6 ms/batch-16 total).  Picked values are bit-identical
+    column ``q0 % spb`` (row ``q0//spb + c`` for bit c).  Rows group
+    into 8-row SUPER-rows — 3.6x fewer, 352-element fetches than one
+    row at a time — and the residual (row realign, column pick) is one
+    fused double-one-hot einsum: exactly one 1.0 per (row, column)
+    pair, so the pick is exact at HIGHEST precision.  Picked values are
+    bit-identical
     to :func:`demod_slot_dense` (pinned by
     tests/test_ask_spec.py::test_demod_slots_dense_matches_slot)."""
     spb = cfg.samples_per_bit
@@ -513,8 +510,8 @@ def demodulate(
 
     (_, _), ys = jax.lax.scan(
         step, (jnp.int32(0), jnp.asarray(False)), None, length=max_frames,
-        # per-step work is tiny; unrolling amortizes the TPU while-loop
-        # dispatch overhead exactly as in phy/decoder.py
+        # per-step work is tiny; unrolling amortizes the while-loop
+        # per-iteration overhead exactly as in phy/decoder.py
         unroll=min(8, max_frames))
 
     # ---- post-pass: demodulate all fired slots at once -----------------
@@ -524,38 +521,27 @@ def demodulate(
 
 
 def demodulate_fast(cfg: AskConfig, rx, max_frames: int = 128):
-    """Host-level dispatch to the fastest sound ASK receiver.
+    """Host-level ASK demod through the fastest sound receiver.
 
-    On TPU, routes through the speculative batched receiver
-    (phy/ask_spec.py) and re-decodes any capture whose conformance
-    flags fired (fired peak outside the dense candidate table, chain
-    not resolved inside the bounded window, or candidate overflow)
-    with the exact scan receiver.  Accepts f32[T] or f32[B, T]."""
+    Runs the speculative batched receiver (phy/ask_spec.py) and
+    re-decodes any capture whose conformance flags fired (fired peak
+    outside the dense candidate table, chain not resolved inside the
+    bounded window, or candidate overflow) with the exact scan receiver.
+    Accepts f32[T] or f32[B, T]."""
     from trackmaker_tpu.phy import ask_spec
     x = jnp.asarray(rx, jnp.float32)
     batched = x.ndim == 2
     xb = x if batched else x[None]
-    if ask_spec.spec_supported():
-        res, ok = ask_spec.demodulate_spec_jit(
-            cfg, xb, max_frames=max_frames)
-        ok = np.asarray(ok)
-        if not ok.all():
-            # re-decode only the flagged rows, one scan each (vmapping
-            # the scan receiver lowers its dynamic slices to pathological
-            # gathers — see CLAUDE.md)
-            res = AskDecoded(*[np.array(a) for a in res])
-            for b in np.nonzero(~ok)[0]:
-                exact = demodulate(cfg, xb[b], max_frames=max_frames)
-                for dst, src in zip(res, exact):
-                    dst[b] = np.asarray(src)
-        return res if batched else jax.tree_util.tree_map(
-            lambda a: a[0], res)
-    if batched:
-        rows = [demodulate(cfg, x[b], max_frames=max_frames)
-                for b in range(x.shape[0])]
-        return jax.tree_util.tree_map(
-            lambda *a: jnp.stack(a), *rows)
-    return demodulate(cfg, x, max_frames=max_frames)
+    res, ok = ask_spec.demodulate_spec_jit(cfg, xb, max_frames=max_frames)
+    ok = np.asarray(ok)
+    if not ok.all():
+        # re-decode only the flagged rows, one scan each
+        res = AskDecoded(*[np.array(a) for a in res])
+        for b in np.nonzero(~ok)[0]:
+            exact = demodulate(cfg, xb[b], max_frames=max_frames)
+            for dst, src in zip(res, exact):
+                dst[b] = np.asarray(src)
+    return res if batched else jax.tree_util.tree_map(lambda a: a[0], res)
 
 
 def assemble_text(decoded: AskDecoded) -> bytes:

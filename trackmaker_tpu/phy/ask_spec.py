@@ -1,11 +1,11 @@
 """Speculative batched ASK receiver: dense fire-candidates + successor
-table + SMEM walk.
+table + pointer-chase walk.
 
 The exact scan receiver (phy/ask.py:demodulate) replays the reference's
 record-chain state machine (examples/ask.rs:693-796) one frame slot per
-`lax.scan` step; each step costs ~100 tiny dispatch-bound ops, which
-caps it at ~550x real time.  This module restructures it the same way
-phy/pallas_decode.py restructured the frame decoder:
+`lax.scan` step, each step a chain of ~100 small dependent ops.  This
+module restructures it the same way phy/spec_decode.py restructured the
+frame decoder:
 
 1. *Dense candidates*: position r can be a fired peak iff ``upd_ok[r]``
    and no strictly-better update exists in ``(r, r+guard+1]``.  This
@@ -27,9 +27,9 @@ phy/pallas_decode.py restructured the frame decoder:
    peak inside the warmup region is not in the table and conformance-
    flags the capture for exact re-decode.
 
-3. *Walk* (SMEM Pallas kernel): the sequential frame loop becomes
-   pointer-chasing over the successor table — one scalar kernel launch
-   instead of max_frames dispatch-bound scan steps.  Slot k of the walk
+3. *Walk*: the sequential frame loop becomes pointer-chasing over the
+   successor table — a `max_frames`-step loop of integer gathers
+   instead of the scan's full receiver step.  Slot k of the walk
    corresponds exactly to scan step k, so results are equal
    slot-for-slot.
 
@@ -39,106 +39,22 @@ shared with the scan receiver and already vmapped.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from trackmaker_tpu.phy import ask
 from trackmaker_tpu.phy.ask import AskConfig, AskDecoded
 
 _BIGI = np.int32(2**30)
 
-def spec_supported() -> bool:
-    """The spec path needs real Pallas (or interpret mode, used by
-    tests); dispatch it on TPU only."""
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _fire_kernel(sa_ref, oa_ref, sb_ref, ob_ref, out_ref, *, w: int,
-                 tr: int):
-    """Fused sliding-window-max fire rule for one tile of TR 128-lane
-    rows (+ the next tile for the 2-row halo): per-block lane cummaxes
-    (7 doubling shift-max stages each way, all in VMEM), block maxima,
-    and the t1/t2/t3 window assembly of the 2-D form below — one HBM
-    read + one bitmap write replace the XLA form's ~700 MB of cummax /
-    flip / concat traffic (~1.2 ms of the ASK receiver's 6.3 ms).
-    Max-only arithmetic: decisions are bit-identical to the XLA form
-    (tests/test_ask_spec.py pins it)."""
-    ninf = jnp.float32(-jnp.inf)
-    ma = jnp.where(oa_ref[...] > 0, sa_ref[...], ninf)
-    mb = jnp.where(ob_ref[...] > 0, sb_ref[...], ninf)
-    x2 = jnp.concatenate([ma, mb], axis=0)          # (2TR, 128)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (2 * tr, 128), 1)
-    pre = x2
-    suf = x2
-    for sh in (1, 2, 4, 8, 16, 32, 64):
-        pre = jnp.maximum(pre, jnp.where(lane < sh, ninf,
-                                         pltpu.roll(pre, sh, 1)))
-        suf = jnp.maximum(suf, jnp.where(lane >= 128 - sh, ninf,
-                                         pltpu.roll(suf, 128 - sh, 1)))
-    bm = jnp.max(x2, axis=1, keepdims=True)         # (2TR, 1)
-
-    lane1 = lane[:tr]
-    split = 256 - w                                  # 55 for w=201
-    t1 = jnp.where(lane1 < 127, pltpu.roll(suf[:tr], 127, 1),
-                   suf[1:tr + 1, 0:1])
-    t2 = jnp.where(lane1 < split,
-                   pltpu.roll(pre[1:tr + 1], 256 - w, 1),
-                   pltpu.roll(pre[2:tr + 2], split, 1))
-    t3 = jnp.where((lane1 >= split) & (lane1 < 127), bm[1:tr + 1],
-                   ninf)
-    fwd = jnp.maximum(jnp.maximum(t1, t2), t3)
-    hit = (ma >= fwd) & (oa_ref[...] > 0)
-    out_ref[...] = hit.astype(jnp.float32)
-
-
-def _fire_kernel_call(cfg: AskConfig, sync: jax.Array,
-                      upd_ok: jax.Array, interpret: bool):
-    """Pallas dispatch of :func:`_fire_kernel` (128 < w <= 256)."""
-    t = sync.shape[-1]
-    w = cfg.peak_guard + 1
-    tr = 256
-    nq = -(-(t + 1) // 128)          # rows covering positions [0, t]
-    tiles = -(-nq // tr)
-    nb = (tiles + 1) * tr            # + one halo tile for the B input
-    ninf = np.float32(-np.inf)
-    sp = jnp.pad(sync, (0, nb * 128 - t), constant_values=ninf
-                 ).reshape(nb, 128)
-    op = jnp.pad(upd_ok.astype(jnp.float32), (0, nb * 128 - t)
-                 ).reshape(nb, 128)
-    out = pl.pallas_call(
-        functools.partial(_fire_kernel, w=w, tr=tr),
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((tr, 128), lambda i: (i, 0)),
-            pl.BlockSpec((tr, 128), lambda i: (i, 0)),
-            pl.BlockSpec((tr, 128), lambda i: (i + 1, 0)),
-            pl.BlockSpec((tr, 128), lambda i: (i + 1, 0)),
-        ],
-        out_specs=pl.BlockSpec((tr, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((tiles * tr, 128), jnp.float32),
-        interpret=interpret,
-    )(sp, op, sp, op)
-    return (out.reshape(-1)[:t] > 0)
-
-
 def dense_fire_candidates(cfg: AskConfig, sync: jax.Array,
-                          upd_ok: jax.Array, interpret: bool = False,
-                          use_kernel: bool | None = None):
+                          upd_ok: jax.Array):
     """bool[T] mask of positions that fire if they become the chain
     record: upd_ok[r] with no strictly-greater masked sync in
     (r, r+guard+1] (window arithmetic per the module docstring).
 
-    Sliding max on 128-aligned blocks: the van Herk form with
-    block == window (201 lanes) relayouts on every cummax step —
-    measured 2.26 ms of the receiver's 10 ms.  With B=128 blocks the
+    Sliding max on 128-aligned blocks.  With B=128 blocks the
     window [i, i+w-1] spans 2..3 blocks (w in (B, 2B+1]), so
     max = suf[i] ∨ (middle block maxima) ∨ pre[i+w-1], where pre/suf
     are lane-aligned per-block cummaxes and every other term is a
@@ -146,9 +62,6 @@ def dense_fire_candidates(cfg: AskConfig, sync: jax.Array,
     t = sync.shape[-1]
     w = cfg.peak_guard + 1                      # 201
     bsz = 128
-    if (use_kernel if use_kernel is not None else True) \
-            and bsz < w <= 2 * bsz:
-        return _fire_kernel_call(cfg, sync, upd_ok, interpret)
     masked = jnp.where(upd_ok, sync, -jnp.inf)
     if w <= bsz:                                 # exotic config: van Herk
         nb = -(-(t + w) // w) + 1
@@ -180,8 +93,8 @@ def dense_fire_candidates(cfg: AskConfig, sync: jax.Array,
                 jnp.where(off >= (mi + 2) * bsz - w + 1, mid, -jnp.inf))
         fwd_max = swin[1: t + 1]
         return upd_ok & (masked[:t] >= fwd_max)
-    # fully 2-D form, no misaligned 1-D slices (each one relayouts the
-    # whole array): for position i = q*B + r the window is (i, i+w],
+    # fully 2-D form, no misaligned 1-D slices: for position
+    # i = q*B + r the window is (i, i+w],
     # and with B < w <= 2B every term is a static row/lane split:
     #   suffix of i+1's block:  r<B-1 -> suf2[q, r+1];  r=B-1 -> suf2[q+1, 0]
     #   prefix at i+w:          r<2B-w -> pre2[q+1, r+w-B]; else pre2[q+2, r+w-2B]
@@ -215,70 +128,43 @@ _R = 512  # fetch-row width for aligned window gathers
 from trackmaker_tpu.core.realign import shift_realign as _shift_realign  # noqa: E402
 
 
-_NEGB = np.int32(-(2 ** 30))
+def _resolve_chain(vals: jax.Array, idx: jax.Array, guard: int):
+    """(fired[C], peak[C]) of the record chain along each row of `vals`
+    (-inf = masked): a running (max, record) pair scan with the
+    earliest index winning ties; a position fires when it is not an
+    update and lies more than `guard` samples past the current record
+    (ask.rs:711-722).  `peak` is the first fire's record, else the final
+    record."""
+    win = vals.shape[-1]
 
+    def combine(a, b):
+        av, ai = a
+        bv, bi = b
+        take_b = bv > av    # strict: earlier index wins ties
+        return jnp.where(take_b, bv, av), jnp.where(take_b, bi, ai)
 
-def _chain_kernel(vals_ref, base_ref, out_ref, *, guard: int,
-                  win: int):
-    """Record-chain fire resolution for one capture's candidate rows:
-    exclusive running max (doubling roll/max stages), update mask,
-    last-update-index cummax, fire rule, first-fire reduction, and the
-    peak pick — all on VMEM registers; one (RP, WIN) read and one
-    (RP, 128) write.  See _phase_b for the semantics derivation."""
-    ninf = jnp.float32(-jnp.inf)
-    vals = vals_ref[...]                            # (RP, WIN)
-    rp = vals.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (rp, win), 1)
-    idx = base_ref[...][:, 0:1] + lane
-    # exclusive running max of vals
-    m = jnp.where(lane == 0, ninf, pltpu.roll(vals, 1, 1))
-    sh = 1
-    while sh < win:
-        m = jnp.maximum(m, jnp.where(lane < sh, ninf,
-                                     pltpu.roll(m, sh, 1)))
-        sh *= 2
-    upd = vals > m                 # strict improvement == chain update
-    ridx = jnp.where(upd, idx, _NEGB)
-    rec = ridx
-    sh = 1
-    while sh < win:
-        rec = jnp.maximum(rec, jnp.where(lane < sh, _NEGB,
-                                         pltpu.roll(rec, sh, 1)))
-        sh *= 2
-    rec_excl = jnp.where(lane == 0, _NEGB, pltpu.roll(rec, 1, 1))
-    fire = (~upd) & (idx > rec_excl + guard) & (m > ninf)
-    j1 = jnp.min(jnp.where(fire, lane, win), axis=1, keepdims=True)
-    fired = j1 < win                                # (RP, 1)
-    peak_f = jnp.sum(jnp.where(lane == j1, rec_excl, 0), axis=1,
-                     keepdims=True)
-    rec_last = jnp.max(ridx, axis=1, keepdims=True)
-    peak = jnp.where(fired, peak_f, rec_last)
-    l128 = jax.lax.broadcasted_iota(jnp.int32, (rp, 128), 1)
-    out_ref[...] = jnp.where(l128 == 0, fired.astype(jnp.int32),
-                             jnp.where(l128 == 1, peak, 0))
-
-
-def _chain_kernel_call(vals: jax.Array, base_w: jax.Array, win: int,
-                       guard: int, interpret: bool):
-    """(fired[C], peak[C]) via :func:`_chain_kernel` (rows padded to a
-    sublane multiple; pad rows are all -inf -> fired False, unused)."""
-    c1 = vals.shape[0]
-    rp = -(-c1 // 8) * 8
-    vp = jnp.pad(vals, ((0, rp - c1), (0, 0)),
-                 constant_values=-jnp.inf)
-    bp = jnp.pad(base_w, (0, rp - c1))
-    bcol = jnp.broadcast_to(bp[:, None], (rp, 128))
-    out = pl.pallas_call(
-        functools.partial(_chain_kernel, guard=guard, win=win),
-        out_shape=jax.ShapeDtypeStruct((rp, 128), jnp.int32),
-        interpret=interpret,
-    )(vp, bcol)
-    return out[:c1, 0] > 0, out[:c1, 1]
+    m_incl, rec_incl = jax.lax.associative_scan(
+        combine, (vals, idx), axis=-1)
+    m_excl = jnp.concatenate(
+        [jnp.full(vals.shape[:-1] + (1,), -jnp.inf), m_incl[..., :-1]],
+        axis=-1)
+    rec_excl = jnp.concatenate([idx[..., :1], rec_incl[..., :-1]], axis=-1)
+    upd_now = vals > m_excl
+    fire = (~upd_now) & (idx > rec_excl + guard) & (m_excl > -jnp.inf)
+    # first-fire pick: one-hot on the first True of `fire` (all-False
+    # rows -> zero one-hot -> fired False, peak falls back to the final
+    # record)
+    wrng = jnp.arange(win, dtype=jnp.int32)
+    j1 = jnp.min(jnp.where(fire, wrng, win), axis=-1, keepdims=True)
+    fired = jnp.any(fire, axis=-1)
+    peak = jnp.where(fired,
+                     jnp.sum(jnp.where(wrng == j1, rec_excl, 0), axis=-1),
+                     rec_incl[..., -1])
+    return fired, peak
 
 
 def _phase_b(cfg: AskConfig, rx, power, sync, upd_ok, cand_full,
-             chain_window: int, interpret: bool = False,
-             use_kernel: bool | None = None):
+             chain_window: int):
     """Per-candidate successor fields for one capture.
 
     cand_full: i32[C+1], ascending; slot 0 is the virtual stream-start
@@ -286,12 +172,8 @@ def _phase_b(cfg: AskConfig, rx, power, sync, upd_ok, cand_full,
     reference's initial zeroed-FIFO state).  Returns i32[5, C+1] rows
     has/fired/complete/next_peak/succ_idx.
 
-    TPU shape (round-3 restructure): the previous per-candidate
-    ``dynamic_slice`` formulation lowered under vmap to per-element
-    gathers — ~10 of 14 ms of the whole receiver for ~5.6M gathered
-    elements.  Row-gathers of 512-lane rows are ~free (measured
-    +0.15 ms for all four windows), so every window is fetched on
-    512-aligned rows via ``jnp.take``; the chain runs on the wider
+    Every window is fetched on 512-aligned rows via ``jnp.take``
+    (whole-row gathers); the chain runs on the wider
     [row_start, row_start + CW + 512) window with the pre-``i0``
     prefix masked off (masked entries have ok=False → -inf, so they
     cannot create records or fires — decisions are unchanged, and the
@@ -300,8 +182,7 @@ def _phase_b(cfg: AskConfig, rx, power, sync, upd_ok, cand_full,
     identically in the scan receiver's 4096 window).  Only the
     440-wide warmup band is realigned exactly, via one-hot f32
     row-selection matmuls (each output has exactly one 1.0 multiplier
-    — exact at HIGHEST precision; same trick as the attempt kernel's
-    rowsel)."""
+    — exact at HIGHEST precision)."""
     t = rx.shape[-1]
     l_pre = cfg.preamble_len
     c1 = cand_full.shape[0]
@@ -396,44 +277,7 @@ def _phase_b(cfg: AskConfig, rx, power, sync, upd_ok, cand_full,
     ok_m = ok_full & (idx >= i0[:, None])
     vals = jnp.where(ok_m, sp_full, -jnp.inf)
 
-    if use_kernel if use_kernel is not None else True:
-        # fused chain kernel (r5): the pair scan's running (max,
-        # record) decomposes into an exclusive value-cummax + a
-        # last-update-index cummax — the running argmax with
-        # earliest-tie rule IS the last strict improvement, so both
-        # are plain cummaxes that run as in-VMEM doubling stages
-        # (~21 roll/max sweeps on registers) instead of ~40 HBM-wide
-        # associative_scan passes.  Decision equality pinned by
-        # tests/test_ask_spec.py::test_chain_kernel_vs_scan.
-        fired, peak = _chain_kernel_call(vals, base_w, win,
-                                         cfg.peak_guard, interpret)
-    else:
-        def combine(a, b):
-            av, ai = a
-            bv, bi = b
-            take_b = bv > av    # strict: earlier index wins ties
-            return jnp.where(take_b, bv, av), jnp.where(take_b, bi, ai)
-
-        m_incl, rec_incl = jax.lax.associative_scan(
-            combine, (vals, idx), axis=-1)
-        m_excl = jnp.concatenate(
-            [jnp.full((c1, 1), -jnp.inf), m_incl[:, :-1]], axis=-1)
-        rec_excl = jnp.concatenate([idx[:, :1], rec_incl[:, :-1]],
-                                   axis=-1)
-        rec_last = rec_incl[:, -1]
-        upd_now = ok_m & (sp_full > m_excl)
-        fire = ((~upd_now) & (idx > rec_excl + cfg.peak_guard)
-                & (m_excl > -jnp.inf))
-        # first-fire pick without per-row element gathers: one-hot on
-        # the first True of `fire` (all-False rows -> zero one-hot ->
-        # fired False, peak falls back to the final record)
-        wrng = jnp.arange(win, dtype=jnp.int32)[None, :]
-        j1 = jnp.min(jnp.where(fire, wrng, win), axis=-1, keepdims=True)
-        oh = (wrng == j1)
-        fired = jnp.any(fire, axis=-1)
-        peak = jnp.where(fired,
-                         jnp.sum(jnp.where(oh, rec_excl, 0), axis=-1),
-                         rec_last)
+    fired, peak = _resolve_chain(vals, idx, cfg.peak_guard)
     complete = (peak + cfg.frame_samples) < t
 
     # next_peak -> candidate index (the successor); -1 when the fired
@@ -452,56 +296,34 @@ def _phase_b(cfg: AskConfig, rx, power, sync, upd_ok, cand_full,
                       nc.astype(jnp.int32)]), rx_pad
 
 
-def _ask_walk_kernel(fields_ref, out_ref, *, max_frames: int):
-    """Pointer-chase over the successor table, one capture per grid
-    step.  fields rows: 0=has, 1=fired, 2=complete, 3=next_peak,
-    4=succ_idx, 5=nonconf.  out rows: 0=peak per slot,
-    1=fire_ok&complete per slot, 2 lane 0 = bad (walk visited a
-    candidate the table cannot represent exactly)."""
+def _walk(fields, max_frames: int):
+    """Pointer chase over the successor table, all captures at once.
+    fields rows: 0=has, 1=fired, 2=complete, 3=next_peak, 4=succ_idx,
+    5=nonconf.  Returns (peak per slot, fire_ok&complete per slot, bad
+    = the walk visited a candidate the table cannot represent
+    exactly)."""
+    b = fields.shape[0]
+
     def body(k, carry):
-        i, done, bad = carry
-        has = fields_ref[0, 0, i]
-        fired = fields_ref[0, 1, i]
-        complete = fields_ref[0, 2, i]
-        peak = fields_ref[0, 3, i]
-        succ = fields_ref[0, 4, i]
-        nc = fields_ref[0, 5, i]
-        active = done == 0
+        i, done, bad, peaks, oks = carry
+        row = jnp.take_along_axis(fields, i[:, None, None], axis=2)[..., 0]
+        has, fired, complete, peak, succ, nc = (row[:, j] for j in range(6))
+        active = ~done
         ok_fire = active & (has > 0) & (fired > 0)
         emit = ok_fire & (complete > 0)
-        out_ref[0, 0, k] = peak
-        out_ref[0, 1, k] = emit.astype(jnp.int32)
         miss = (emit & (succ < 0)) | (active & (nc > 0))
-        ndone = jnp.where(
-            active & ((has == 0) | (fired == 0)
-                      | (ok_fire & (complete == 0)) | miss),
-            1, done)
-        advance = emit & (succ >= 0)
-        return (jnp.where(advance, succ, i), ndone,
-                jnp.where(miss, 1, bad))
+        done = done | (active & ((has == 0) | (fired == 0)
+                                 | (ok_fire & (complete == 0)) | miss))
+        peaks = peaks.at[:, k].set(peak)
+        oks = oks.at[:, k].set(emit)
+        return (jnp.where(emit & (succ >= 0), succ, i), done, bad | miss,
+                peaks, oks)
 
-    _i, _done, bad = jax.lax.fori_loop(
-        0, max_frames, body, (jnp.int32(0), jnp.int32(0), jnp.int32(0)))
-    out_ref[0, 2, 0] = bad
-
-
-def _walk(fields, max_frames: int, interpret: bool):
-    b, _, c1 = fields.shape
-    out = pl.pallas_call(
-        functools.partial(_ask_walk_kernel, max_frames=max_frames),
-        out_shape=jax.ShapeDtypeStruct((b, 3, max(max_frames, 4)),
-                                       jnp.int32),
-        grid=(b,),
-        in_specs=[pl.BlockSpec((1, 6, c1), lambda bb: (bb, 0, 0),
-                               memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec((1, 3, max(max_frames, 4)),
-                               lambda bb: (bb, 0, 0),
-                               memory_space=pltpu.SMEM),
-        interpret=interpret,
-    )(fields)
-    peaks = out[:, 0, :max_frames]
-    fire_ok = out[:, 1, :max_frames].astype(bool)
-    bad = out[:, 2, 0] > 0
+    init = (jnp.zeros(b, jnp.int32), jnp.zeros(b, bool), jnp.zeros(b, bool),
+            jnp.zeros((b, max_frames), jnp.int32),
+            jnp.zeros((b, max_frames), bool))
+    _i, _done, bad, peaks, fire_ok = jax.lax.fori_loop(
+        0, max_frames, body, init)
     return peaks, fire_ok, bad
 
 
@@ -512,9 +334,8 @@ def demodulate_spec(
     n_cand: int = 96,
     chain_window: int = 512,     # must be a multiple of _R; 512 stays
     #                              conformant with decisions equal to
-    #                              1024 on every probed track (r5), and
-    #                              the chain arrays are phase_b's bulk
-    interpret: bool = False,
+    #                              1024 on every probed track, and the
+    #                              chain arrays are phase_b's bulk
 ):
     """Batched speculative ASK demod.  Returns ``(AskDecoded[B, K],
     ok[B])``; rows with ``ok=False`` (candidate-table overflow, a
@@ -528,27 +349,25 @@ def demodulate_spec(
 
     ``TM_ASK_DENSE=0`` (read at trace time — set before process start)
     falls back from the dense demod post-pass to the per-slot window
-    demod; escape hatch / A-B switch for on-chip profiling."""
-    from trackmaker_tpu.phy.pallas_decode import _extract_candidates
+    demod."""
+    from trackmaker_tpu.phy.spec_decode import _extract_candidates
     rx = jnp.asarray(rx, jnp.float32)
     assert rx.ndim == 2
     b, t = rx.shape
 
     def analyze(row):
         power, sync, upd_ok = ask.dense_arrays(cfg, row)
-        hits = dense_fire_candidates(cfg, sync, upd_ok,
-                                     interpret=interpret)
+        hits = dense_fire_candidates(cfg, sync, upd_ok)
         cand, _nv, overflow = _extract_candidates(
             hits, n_cand, rpb=8)
         virt = jnp.full((1,), -(cfg.frame_samples + 1), jnp.int32)
         cand_full = jnp.concatenate([virt, cand])
         fields, rx_pad = _phase_b(cfg, row, power, sync, upd_ok,
-                                  cand_full, chain_window,
-                                  interpret=interpret)
+                                  cand_full, chain_window)
         return fields, rx_pad, overflow
 
     fields, rx_pads, overflow = jax.vmap(analyze)(rx)
-    peaks, fire_ok, bad = _walk(fields, max_frames, interpret)
+    peaks, fire_ok, bad = _walk(fields, max_frames)
 
     import os
     if (ask._demod_dense_tables_np(cfg) is not None
@@ -572,5 +391,4 @@ def demodulate_spec(
 
 demodulate_spec_jit = jax.jit(
     demodulate_spec,
-    static_argnames=("cfg", "max_frames", "n_cand", "chain_window",
-                     "interpret"))
+    static_argnames=("cfg", "max_frames", "n_cand", "chain_window"))

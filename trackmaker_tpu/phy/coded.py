@@ -31,7 +31,7 @@ Soft metrics per waveform:
   Viterbi directly — only table-consistent 4-bit LLRs do, so the 4B5B
   run-length guarantees survive coding.
 
-TPU shape: soft demod is dynamic-slice + reshape + mean + one
+Device shape: soft demod is dynamic-slice + reshape + mean + one
 (n_sym, 5) x (5, 16) matmul (fixed shapes, static max sizes); Viterbi
 is the vectorized add-compare-select scan in core/convcode.py.  The
 streaming facade mirrors OfdmStreamPhyV2 so the MAC stack runs
@@ -95,7 +95,8 @@ def _soft_bits_4b5b(spl: int, padded: jax.Array, n_sym: int,
     prev = jnp.concatenate([jnp.ones(1, avg.dtype), avg[:-1]])
     tr = -(prev * avg)                       # >0 <=> transition <=> 1
     cw, nb = _demap_tables()
-    scores = tr.reshape(n_sym, 5) @ jnp.asarray(cw).T     # (n_sym, 16)
+    scores = jnp.dot(tr.reshape(n_sym, 5), jnp.asarray(cw).T,
+                     precision=jax.lax.Precision.HIGHEST)  # (n_sym, 16)
     nbj = jnp.asarray(nb)                                 # (16, 4)
     neg_inf = jnp.float32(-1e30)
     pos = jnp.max(jnp.where(nbj.T[None], scores[:, None, :], neg_inf),
@@ -159,7 +160,7 @@ class _CodedPhyBase:
         the batched decoder; `start` may be a traced scalar."""
         raise NotImplementedError
 
-    # -- batched TPU decode (equal-length frames) ------------------------
+    # -- batched device decode (equal-length frames) ---------------------
 
     def batched_decode_fn(self, n_frames: int, payload_len: int):
         """Build a jittable ``x[B, T] -> (starts[B, F], bits[B, F,
@@ -168,8 +169,8 @@ class _CodedPhyBase:
         refine), soft demod per block, deinterleave (static inverse
         permutation), [depuncture,] and the vectorized-ACS Viterbi —
         one fixed-shape program, vmapped over captures and frames.
-        This is the TPU path the bench's coded rows measure (VERDICT
-        r3 item 2); the streaming `process_samples` facade stays the
+        This is the path the bench's coded rows measure; the streaming
+        `process_samples` facade stays the
         MAC-side spec (tests pin the two against each other)."""
         from trackmaker_tpu.sync import find_pattern_starts
 
@@ -185,9 +186,7 @@ class _CodedPhyBase:
         tail = (self.preamble_len + hdr_wire + pay_wire
                 + 16 * cfg.samples_per_level + 64)
 
-        # static-permutation deinterleave as a one-hot matmul: the
-        # last-axis gather `soft[..., inv]` runs at TPU-gather speed
-        # (~2-21 ns/element — CLAUDE.md) even with constant indices;
+        # static-permutation deinterleave as a one-hot matmul:
         # P[i, j] = 1 iff j == inv[i] has exactly one 1.0 per output,
         # so the HIGHEST-precision matmul is an exact f32 pick
         pm_h = np.zeros((kept_h, kept_h), np.float32)

@@ -3,13 +3,12 @@
 The reference decoder is an online, data-dependent state machine
 (``src/phy/decoder.rs``): scan window-by-window for a preamble correlation
 >= 0.9, refine alignment on the sync word, decode a length-delimited frame,
-CRC-check, resume.  A TPU can't profitably run that loop sample-by-sample,
-so the design is **two-phase**:
+CRC-check, resume.  An accelerator can't profitably run that loop
+sample-by-sample, so the design is **two-phase**:
 
 1. *Dense phase (parallel):* normalized cross-correlation against the
    preamble over every lag at once (``trackmaker_tpu.sync``), thresholded
-   into a candidate list — this is ~all the FLOPs and runs wide on the
-   MXU/VPU.
+   into a candidate list — this is ~all the FLOPs and runs wide.
 
 2. *Consumption phase (tiny sequential):* a ``lax.scan`` over at most
    `max_frames` steps replays the reference's *decisions* exactly — first
@@ -93,6 +92,131 @@ class DecodedFrames(NamedTuple):
         return out
 
 
+def window_pad(cfg: PhyConfig) -> int:
+    """Zero padding past a capture's end that keeps every fixed-size
+    per-frame window below (sync slab, header, full frame) in bounds
+    for any preamble start in [0, T]."""
+    return (cfg.samples_for_bits((PHY_HEADER_BYTES + cfg.max_frame_bytes) * 8)
+            + cfg.preamble_len + cfg.sync_margin + cfg.sync_len + 8)
+
+
+def _sync_slab_len(cfg: PhyConfig) -> int:
+    # one slab covers both the sync realignment windows (max offset
+    # 2*margin + sync_len) and every possible header window
+    # (frame_start <= base + 2*margin + sync_len)
+    return 2 * cfg.sync_margin + cfg.sync_len + cfg.header_samples
+
+
+def sync_refine(
+    cfg: PhyConfig, padded: jax.Array, vlen: jax.Array, expected: jax.Array,
+) -> tuple[jax.Array, tuple[jax.Array, jax.Array]]:
+    """±1-bit sync-word realignment (decoder.rs:158-217) around the
+    nominal sync-word start `expected` of a zero-padded capture.
+    Returns (best position, (slab, base)) — the slab also holds every
+    header window, so :func:`decode_header` reuses it."""
+    pre_np = line_coding.preamble_waveform(cfg)
+    sync_len, margin = cfg.sync_len, cfg.sync_margin
+    sync_np = pre_np[len(pre_np) - sync_len:]
+    sync_pat = jnp.asarray(sync_np)
+    sync_energy = correlate.preamble_energy(sync_np)
+    n_pos = 2 * margin + 1
+
+    base = jnp.clip(expected - margin, 0)
+    pos = base + jnp.arange(n_pos, dtype=jnp.int32)
+    valid = ((pos >= expected - margin) & (pos <= expected + margin)
+             & (pos <= vlen - sync_len))
+    slab = jax.lax.dynamic_slice(padded, (base,), (_sync_slab_len(cfg),))
+    wins = jnp.stack(
+        [jax.lax.slice(slab, (k,), (k + sync_len,)) for k in range(n_pos)])
+    dot = jnp.dot(wins, sync_pat, precision=jax.lax.Precision.HIGHEST)
+    we = jnp.sum(wins * wins, axis=-1)
+    c = jnp.where((we > 1e-6) & (sync_energy > 1e-6),
+                  dot / (jnp.sqrt(we) * sync_energy), 0.0)
+    c = jnp.where(valid, c, -jnp.inf)
+    best = jnp.argmax(c)  # first max wins ties, like strict `>` update
+    bestpos = jnp.where(jnp.max(c) > -1.0, pos[best], expected)
+    return bestpos, (slab, base)
+
+
+def decode_header(cfg: PhyConfig, frame_start: jax.Array, slab_ctx,
+                  optimistic: bool = False) -> dict:
+    """Header fields of the frame at `frame_start` (decoder.rs:242-286),
+    read from :func:`sync_refine`'s slab.  ``header_ok`` needs >= 49
+    decoded bits and a known frame type.  With `optimistic` (4B5B) the
+    header decodes without the near-zero-level carry and ``hdr_zero``
+    flags any near-zero level in the window (the carry could change the
+    bits there)."""
+    slab, base = slab_ctx
+    header_samples, header_bits = cfg.header_samples, cfg.header_bits
+    off = jnp.clip(frame_start - base, 0,
+                   _sync_slab_len(cfg) - header_samples)
+    hdr_win = jax.lax.dynamic_slice(slab, (off,), (header_samples,))
+    if optimistic:
+        hdr_bits, hdr_ok, near0 = line_coding.fourb5b_decode_opt(
+            hdr_win, cfg.samples_per_level)
+        hdr_zero = jnp.any(near0)
+    else:
+        hdr_bits, hdr_ok = line_coding.decode(cfg, hdr_win)
+        hdr_zero = jnp.asarray(False)
+    n_valid_hdr = jnp.sum(hdr_ok[:header_bits].astype(jnp.int32))
+    hdr_bits = jnp.where(
+        jnp.arange(header_bits) < n_valid_hdr, hdr_bits[:header_bits], 0)
+    hdr_bytes = bitops.pack_bits(hdr_bits)
+    fields = {
+        "data_len": (hdr_bytes[0].astype(jnp.int32) << 8) | hdr_bytes[1],
+        "crc_field": hdr_bytes[2].astype(jnp.int32),
+        "ftype": hdr_bytes[3].astype(jnp.int32),
+        "seq": hdr_bytes[4].astype(jnp.int32),
+        "src": hdr_bytes[5].astype(jnp.int32),
+        "dst": hdr_bytes[6].astype(jnp.int32),
+    }
+    # parse_header needs 7 whole-or-partial bytes: >=49 decoded bits
+    # (bits_to_bytes zero-fills the tail, crc.rs:63-75)
+    type_ok = (fields["ftype"] == 1) | (fields["ftype"] == 2)
+    fields["header_ok"] = (n_valid_hdr >= 49) & type_ok
+    fields["hdr_zero"] = hdr_zero
+    return fields
+
+
+class FrameBody(NamedTuple):
+    bytes_full: jax.Array    # uint8[7+max_frame_bytes], zero past the frame
+    n_valid_bits: jax.Array  # i32: decoded bits before the first invalid one
+    line_fail: jax.Array     # bool: fewer valid bits than the frame holds
+    crc: jax.Array           # uint8: CRC8 of the decoded payload
+    near0: jax.Array         # bool: near-zero level inside the frame
+    #                          (optimistic 4B5B only; else False)
+
+
+def decode_body(cfg: PhyConfig, padded: jax.Array, frame_start: jax.Array,
+                data_len: jax.Array, optimistic: bool = False) -> FrameBody:
+    """Full-window line decode + CRC of the frame at `frame_start`
+    (decoder.rs:287-331).  `optimistic` decodes 4B5B without the
+    near-zero-level carry and reports such levels in ``near0``."""
+    max_total_bytes = PHY_HEADER_BYTES + cfg.max_frame_bytes
+    total_bits = (PHY_HEADER_BYTES + data_len) * 8
+    body_win = jax.lax.dynamic_slice(
+        padded, (jnp.clip(frame_start, 0),),
+        (cfg.samples_for_bits(max_total_bytes * 8),))
+    if optimistic:
+        bits, bit_ok, near0 = line_coding.fourb5b_decode_opt(
+            body_win, cfg.samples_per_level)
+        lvl_in_frame = jnp.arange(near0.shape[-1]) < (total_bits // 4) * 5
+        near0 = jnp.any(near0 & lvl_in_frame)
+    else:
+        bits, bit_ok = line_coding.decode(cfg, body_win)
+        near0 = jnp.asarray(False)
+    in_frame = jnp.arange(bits.shape[-1]) < total_bits
+    n_valid_bits = jnp.sum((bit_ok & in_frame).astype(jnp.int32))
+    masked_bits = jnp.where(in_frame, bits, 0)
+    payload_bits = masked_bits[PHY_HEADER_BYTES * 8: max_total_bytes * 8]
+    crc = bitops.crc8_bits_matmul(
+        payload_bits, jnp.clip(data_len, 0, cfg.max_frame_bytes))
+    return FrameBody(
+        bytes_full=bitops.pack_bits(masked_bits[: max_total_bytes * 8]),
+        n_valid_bits=n_valid_bits, line_fail=n_valid_bits < total_bits,
+        crc=crc, near0=near0)
+
+
 @functools.partial(
     jax.jit,
     static_argnames=("cfg", "max_frames", "with_cursor", "optimistic"))
@@ -155,32 +279,21 @@ def decode_capture(
              else jnp.asarray(scan_limit, jnp.int32))
 
     pre_np = line_coding.preamble_waveform(cfg)
-    pre = jnp.asarray(pre_np)
-    l_pre = pre.shape[0]
+    l_pre = len(pre_np)
     pre_energy = correlate.preamble_energy(pre_np)
-
     sync_len = cfg.sync_len
-    sync_pat = pre[l_pre - sync_len:]
-    sync_energy = correlate.preamble_energy(pre_np[l_pre - sync_len:])
-    margin = cfg.sync_margin
     header_samples = cfg.header_samples
-    header_bits = cfg.header_bits
     max_total_bytes = PHY_HEADER_BYTES + cfg.max_frame_bytes
-    max_window = cfg.samples_for_bits(max_total_bytes * 8)
 
     if t < l_pre:  # capture shorter than the preamble: nothing to find
         samples = jnp.pad(samples, (0, l_pre - t))
         t = l_pre
 
     # ---- phase 1: dense correlation + candidate extraction ----------------
-    # backend-dispatched: fused Pallas kernel on TPU, XLA conv on CPU
-    from trackmaker_tpu import sync as sync_mod
-    corr = sync_mod.auto_xcorr(samples, pre_np, pre_energy)
+    corr = correlate.normalized_xcorr(samples, pre_np, pre_energy)
     hits = corr >= cfg.correlation_threshold
-    # Two-level block index for "first hit >= cursor" queries: a global
-    # jnp.nonzero-style compaction costs ~4ms/capture on TPU (measured —
-    # it dominated the whole decode); two tiny argmax lookups per scan
-    # step cost ~nothing.
+    # Two-level block index for "first hit >= cursor" queries: two tiny
+    # argmax lookups per scan step instead of a global compaction.
     blk = 512
     n_corr = hits.shape[-1]
     hb = -(-n_corr // blk)
@@ -206,41 +319,8 @@ def decode_capture(
         return first.astype(jnp.int32), has1 | has2
 
     # zero-pad so every fixed-size dynamic_slice below stays in bounds
-    pad = max_window + l_pre + margin + sync_len + 8
-    padded = jnp.concatenate([samples, jnp.zeros(pad, jnp.float32)])
-
-    sync_positions = jnp.arange(2 * margin + 1, dtype=jnp.int32) - margin
-
-    n_sync_pos = 2 * margin + 1
-
-    # one slab covers both the sync realignment windows (max offset
-    # 2*margin + sync_len) and every possible header window
-    # (frame_start <= base + 2*margin + sync_len), so a scan step
-    # touches the big capture array ONCE
-    comb_len = 2 * margin + sync_len + header_samples
-
-    def sync_refine(
-        expected: jax.Array,
-    ) -> tuple[jax.Array, tuple[jax.Array, jax.Array]]:
-        """±1-bit sync-word realignment (decoder.rs:158-217).
-        Returns (best position, (slab, base)) — the combined slab is
-        reused by decode_header."""
-        base = jnp.clip(expected - margin, 0)
-        pos = base + (sync_positions + margin)   # base + [0 .. 2*margin]
-        valid = ((pos >= expected - margin) & (pos <= expected + margin)
-                 & (pos <= vlen - sync_len))
-        slab = jax.lax.dynamic_slice(padded, (base,), (comb_len,))
-        wins = jnp.stack(
-            [jax.lax.slice(slab, (k,), (k + sync_len,))
-             for k in range(n_sync_pos)])
-        dot = wins @ sync_pat
-        we = jnp.sum(wins * wins, axis=-1)
-        c = jnp.where((we > 1e-6) & (sync_energy > 1e-6),
-                      dot / (jnp.sqrt(we) * sync_energy), 0.0)
-        c = jnp.where(valid, c, -jnp.inf)
-        best = jnp.argmax(c)  # first max wins ties, like strict `>` update
-        bestpos = jnp.where(jnp.max(c) > -1.0, pos[best], expected)
-        return bestpos, (slab, base)
+    padded = jnp.concatenate(
+        [samples, jnp.zeros(window_pad(cfg), jnp.float32)])
 
     # Manchester line decode never truncates (no invalid symbols), so the
     # cursor advance is fully determined by the *header* — the expensive
@@ -250,55 +330,6 @@ def decode_capture(
     # inside the scan — unless `optimistic` defers it to the post-pass
     # with a conformance check.
     body_in_scan = cfg.line_coding != MANCHESTER and not optimistic
-
-    def decode_header(frame_start, slab_ctx):
-        slab, base = slab_ctx
-        off = jnp.clip(frame_start - base, 0, comb_len - header_samples)
-        hdr_win = jax.lax.dynamic_slice(slab, (off,), (header_samples,))
-        if optimistic:
-            hdr_bits, hdr_ok, near0 = line_coding.fourb5b_decode_opt(
-                hdr_win, cfg.samples_per_level)
-            hdr_zero = jnp.any(near0)
-        else:
-            hdr_bits, hdr_ok = line_coding.decode(cfg, hdr_win)
-            hdr_zero = jnp.asarray(False)
-        n_valid_hdr = jnp.sum(hdr_ok[:header_bits].astype(jnp.int32))
-        hdr_bits = jnp.where(
-            jnp.arange(header_bits) < n_valid_hdr, hdr_bits[:header_bits], 0)
-        hdr_bytes = bitops.pack_bits(hdr_bits)
-        fields = {
-            "data_len": (hdr_bytes[0].astype(jnp.int32) << 8) | hdr_bytes[1],
-            "crc_field": hdr_bytes[2].astype(jnp.int32),
-            "ftype": hdr_bytes[3].astype(jnp.int32),
-            "seq": hdr_bytes[4].astype(jnp.int32),
-            "src": hdr_bytes[5].astype(jnp.int32),
-            "dst": hdr_bytes[6].astype(jnp.int32),
-        }
-        # parse_header needs 7 whole-or-partial bytes: >=49 decoded bits
-        # (bits_to_bytes zero-fills the tail, crc.rs:63-75)
-        type_ok = (fields["ftype"] == 1) | (fields["ftype"] == 2)
-        fields["header_ok"] = (n_valid_hdr >= 49) & type_ok
-        fields["hdr_zero"] = hdr_zero
-        return fields
-
-    def decode_body(frame_start, data_len):
-        """Full-window line decode + CRC -> (bytes_full, n_valid_bits,
-        line_fail, crc_ok)."""
-        total_bits = (PHY_HEADER_BYTES + data_len) * 8
-        body_win = jax.lax.dynamic_slice(
-            padded, (jnp.clip(frame_start, 0),), (max_window,))
-        bits_full, bit_ok_full = line_coding.decode(cfg, body_win)
-        nbits_full = bits_full.shape[-1]
-        in_frame = jnp.arange(nbits_full) < total_bits
-        n_valid_bits = jnp.sum((bit_ok_full & in_frame).astype(jnp.int32))
-        line_fail = n_valid_bits < total_bits
-        masked_bits = jnp.where(in_frame, bits_full, 0)
-        bytes_full = bitops.pack_bits(masked_bits[: max_total_bytes * 8])
-        payload_bits = masked_bits[PHY_HEADER_BYTES * 8:
-                                   max_total_bytes * 8]
-        crc_calc = bitops.crc8_bits_matmul(
-            payload_bits, jnp.clip(data_len, 0, cfg.max_frame_bytes))
-        return bytes_full, n_valid_bits, line_fail, crc_calc
 
     def step(carry, _):
         cursor, done, pending = carry
@@ -311,14 +342,14 @@ def decode_capture(
 
         # --- sync refinement + frame start
         expected = i + (l_pre - sync_len)
-        best_pos, slab_ctx = sync_refine(expected)
+        best_pos, slab_ctx = sync_refine(cfg, padded, vlen, expected)
         frame_start = best_pos + sync_len
 
         # reference waits for more data when the header spills past the
         # buffer end (decoder.rs:252-254); at end-of-capture that means
         # the stream is done.
         hdr_incomplete = frame_start + header_samples > vlen
-        h = decode_header(frame_start, slab_ctx)
+        h = decode_header(cfg, frame_start, slab_ctx, optimistic)
         data_len, ftype = h["data_len"], h["ftype"]
         header_ok = h["header_ok"]
 
@@ -330,9 +361,10 @@ def decode_capture(
         incomplete = frame_start + total_samples > vlen
 
         if body_in_scan:
-            bytes_full, n_valid_bits, line_fail, crc_calc = decode_body(
-                frame_start, data_len)
-            crc_ok = crc_calc.astype(jnp.int32) == h["crc_field"]
+            body = decode_body(cfg, padded, frame_start, data_len)
+            bytes_full = body.bytes_full
+            n_valid_bits, line_fail = body.n_valid_bits, body.line_fail
+            crc_ok = body.crc.astype(jnp.int32) == h["crc_field"]
         else:
             bytes_full = jnp.zeros(max_total_bytes, jnp.uint8)
             n_valid_bits = total_bits
@@ -414,7 +446,7 @@ def decode_capture(
         ((vlen * 0 + cursor0).astype(jnp.int32), vlen < 0,
          (vlen * 0 + _BIG).astype(jnp.int32)),
         None, length=max_frames,
-        # unrolling amortizes the TPU while-loop per-iteration overhead,
+        # unrolling amortizes the while-loop per-iteration overhead,
         # which dominates this scan (each step is tiny)
         unroll=min(8, max_frames))
 
@@ -441,26 +473,12 @@ def decode_capture(
         hdr_nonconf = ys.pop("hdr_nonconf")
 
         def body_slot_opt(fs, dlen, cf, keep):
-            total_bits = (PHY_HEADER_BYTES + dlen) * 8
-            body_win = jax.lax.dynamic_slice(
-                padded, (jnp.clip(fs, 0),), (max_window,))
-            bits, bit_ok, near0 = line_coding.fourb5b_decode_opt(
-                body_win, cfg.samples_per_level)
-            in_frame = jnp.arange(bits.shape[-1]) < total_bits
-            line_fail = jnp.any(~bit_ok & in_frame)
-            lvl_in_frame = (jnp.arange(near0.shape[-1])
-                            < (total_bits // 4) * 5)
-            nonconf = line_fail | jnp.any(near0 & lvl_in_frame)
-            masked_bits = jnp.where(in_frame, bits, 0)
-            bytes_full = bitops.pack_bits(
-                masked_bits[: max_total_bytes * 8])
-            crc_calc = bitops.crc8_bits_matmul(
-                masked_bits[PHY_HEADER_BYTES * 8: max_total_bytes * 8],
-                jnp.clip(dlen, 0, cfg.max_frame_bytes))
-            ok = (crc_calc.astype(jnp.int32) == cf) & keep & ~nonconf
+            body = decode_body(cfg, padded, fs, dlen, optimistic=True)
+            nonconf = body.line_fail | body.near0
+            ok = (body.crc.astype(jnp.int32) == cf) & keep & ~nonconf
             masked = jnp.where(
                 ok & (jnp.arange(max_total_bytes) <
-                      PHY_HEADER_BYTES + dlen), bytes_full, 0)
+                      PHY_HEADER_BYTES + dlen), body.bytes_full, 0)
             return masked.astype(jnp.uint8), ok, nonconf
 
         frame_bytes, valid, nonconfs = jax.vmap(body_slot_opt)(
@@ -468,11 +486,11 @@ def decode_capture(
         conformant = ~(jnp.any(att & nonconfs) | jnp.any(hdr_nonconf))
     else:
         def body_slot(fs, dlen, cf, attempted):
-            bytes_full, _nv, _lf, crc_calc = decode_body(fs, dlen)
-            crc_ok = (crc_calc.astype(jnp.int32) == cf) & attempted
+            body = decode_body(cfg, padded, fs, dlen)
+            crc_ok = (body.crc.astype(jnp.int32) == cf) & attempted
             masked = jnp.where(
                 crc_ok & (jnp.arange(max_total_bytes) <
-                          PHY_HEADER_BYTES + dlen), bytes_full, 0)
+                          PHY_HEADER_BYTES + dlen), body.bytes_full, 0)
             return masked.astype(jnp.uint8), crc_ok
 
         frame_bytes, valid = jax.vmap(body_slot)(
@@ -503,19 +521,6 @@ def _batched_fn(cfg, max_frames, optimistic):
         in_axes=(0, None, 0)))
 
 
-def _spec_supported(cfg: PhyConfig) -> bool:
-    """Whether a Pallas speculative kernel covers this config on this
-    backend (Manchester/4B5B spl=3 on TPU; see phy/pallas_decode.py)."""
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if not on_tpu:
-        return False
-    from trackmaker_tpu.phy.pallas_decode import spec_supported_cfg
-    return spec_supported_cfg(cfg)
-
-
 def decode_capture_fast(
     cfg: PhyConfig,
     samples,                     # f32[T] or f32[B, T]
@@ -527,43 +532,35 @@ def decode_capture_fast(
 ) -> DecodedFrames:
     """Host-level batch decode picking the fastest sound path.
 
-    On TPU both line codings run the Pallas speculative decoder
-    (phy/pallas_decode.py — candidate table + attempt kernel + scalar
-    walk; measured 4.1x / 4.8x the exact scan for Manchester / 4B5B);
+    Configurations the speculative decoder covers
+    (:func:`trackmaker_tpu.phy.spec_decode.spec_supported_cfg`) run it
+    (candidate table + candidate-parallel attempts + vectorized walk);
     rows whose candidate table overflowed — or, 4B5B, whose attempted
     candidates hit a near-zero level average (the optimistic NRZI rule
     cannot replay the reference's skip-carry) — re-decode exactly.
-    On CPU, Manchester uses the exact path and 4B5B the optimistic
-    two-pass.  Results always equal :func:`decode_capture` up to slot
-    compaction (the speculative path packs valid frames into the
-    leading slots; the valid-masked content is identical)."""
+    Other configurations take the exact scan (Manchester) or the
+    optimistic two-pass (4B5B).  Results always equal
+    :func:`decode_capture` up to slot compaction (the speculative path
+    packs valid frames into the leading slots; the valid-masked content
+    is identical)."""
     x = jnp.asarray(samples)
     batched = x.ndim == 2
     vlen = jnp.asarray(
         x.shape[-1] if valid_len is None else valid_len, jnp.int32)
     vlen_b = jnp.broadcast_to(vlen, x.shape[:1] if batched else (1,))
-    if _spec_supported(cfg):
-            from trackmaker_tpu.phy.pallas_decode import (
-                decode_capture_spec_jit)
-            xb = x if batched else x[None]
-            res, ok = decode_capture_spec_jit(
-                cfg, xb, local_addr, max_frames=max_frames,
-                valid_len=vlen_b)
-            ok = np.asarray(ok)
-            if ok.all():
-                return res if batched else jax.tree_util.tree_map(
-                    lambda a: a[0], res)
+    from trackmaker_tpu.phy.spec_decode import (
+        decode_capture_spec_jit, spec_supported_cfg)
+    if spec_supported_cfg(cfg):
+        xb = x if batched else x[None]
+        res, ok = decode_capture_spec_jit(
+            cfg, xb, local_addr, max_frames=max_frames, valid_len=vlen_b)
+        ok = np.asarray(ok)
+        if not ok.all():
             exact = _batched_fn(cfg, max_frames, False)(
                 xb, local_addr, vlen_b)
-            pick = jnp.asarray(ok)
-
-            def merge2(a, b):
-                shape = (pick.shape[0],) + (1,) * (a.ndim - 1)
-                return jnp.where(pick.reshape(shape), a, b)
-
-            merged = jax.tree_util.tree_map(merge2, res, exact)
-            return merged if batched else jax.tree_util.tree_map(
-                lambda a: a[0], merged)
+            res = _merge_rows(ok, res, exact)
+        return res if batched else jax.tree_util.tree_map(
+            lambda a: a[0], res)
     if cfg.line_coding == MANCHESTER:
         if batched:
             return _batched_fn(cfg, max_frames, False)(
@@ -584,13 +581,19 @@ def decode_capture_fast(
     if ok.all():
         return res
     exact = _batched_fn(cfg, max_frames, False)(x, local_addr, vlen_b)
+    return _merge_rows(ok, res, exact)
+
+
+def _merge_rows(ok: np.ndarray, fast: DecodedFrames,
+                exact: DecodedFrames) -> DecodedFrames:
+    """Row-wise pick: `fast` where ok[b], else `exact`."""
     pick = jnp.asarray(ok)
 
     def merge(a, b):
         shape = (pick.shape[0],) + (1,) * (a.ndim - 1)
         return jnp.where(pick.reshape(shape), a, b)
 
-    return jax.tree_util.tree_map(merge, res, exact)
+    return jax.tree_util.tree_map(merge, fast, exact)
 
 
 class PhyDecoder:
@@ -644,12 +647,12 @@ class PhyDecoder:
         return frames
 
     def _decode_with_cursor(self, padded, n):
-        """(frames, searched_until) — the speculative kernel when it
-        covers this config/backend (same cursor semantics, ~4x lower
-        latency), else the exact scan."""
-        if _spec_supported(self.cfg):
-            from trackmaker_tpu.phy.pallas_decode import (
-                decode_capture_spec_jit)
+        """(frames, searched_until) — the speculative decoder when it
+        covers this config (same cursor semantics), else the exact
+        scan."""
+        from trackmaker_tpu.phy.spec_decode import (
+            decode_capture_spec_jit, spec_supported_cfg)
+        if spec_supported_cfg(self.cfg):
             res, ok, searched, _cur = decode_capture_spec_jit(
                 self.cfg, padded[None], self.local_addr,
                 max_frames=self.max_frames, valid_len=n, with_cursor=True)

@@ -1,4 +1,4 @@
-"""PHY encoder: frames -> 48 kHz waveforms, batched on TPU.
+"""PHY encoder: frames -> 48 kHz waveforms, batched on the device.
 
 The reference encodes one frame at a time on the CPU
 (``src/phy/encoder.rs:43-92``: preamble ‖ line-coded frame bits, frames

@@ -2,7 +2,7 @@
 
 The reference's Project-1 modem family is ASK/FSK single-carrier
 (docs/proj/proj1.md); ``examples/ask.rs`` implements the ASK variant and
-this is the FSK sibling, TPU-first: phase-continuous synthesis is a
+this is the FSK sibling, batch-first: phase-continuous synthesis is a
 ``cumsum`` over per-sample frequency, and noncoherent demodulation is a
 batched quadrature (I/Q) energy comparison per bit — two small matmuls
 over the reshaped bit windows.
@@ -71,7 +71,8 @@ def demodulate_at(cfg: FskConfig, rx: jax.Array, n_bits: int,
     def one(start):
         seg = jax.lax.dynamic_slice(pad, (start + off,), (total,))
         wins = seg.reshape(n_bits, spb)
-        iq = wins @ basis                             # (n_bits, 4)
+        iq = jnp.dot(wins, basis,
+                     precision=jax.lax.Precision.HIGHEST)  # (n_bits, 4)
         e0 = iq[:, 0] ** 2 + iq[:, 1] ** 2
         e1 = iq[:, 2] ** 2 + iq[:, 3] ** 2
         return (e1 > e0).astype(jnp.uint8)

@@ -1,4 +1,4 @@
-"""Line codes as batched TPU array programs.
+"""Line codes as batched array programs.
 
 The reference implements Manchester and 4B5B+NRZI as sequential Rust loops
 (``src/phy/line_coding.rs``).  Here both are reshaped/vectorized:

@@ -5,7 +5,7 @@ The reference stack is single-carrier (Manchester/4B5B baseband and the
 ASK example); OFDM appears in its vendored study material
 (``assets/psk.cxx``, fldigi) but was never built.  The north star
 explicitly asks for the OFDM path as batched FFT/IFFT array programs, so
-this is a from-scratch TPU-first design:
+this is a from-scratch batched design:
 
 * DMT-style real-valued OFDM: data subcarriers are placed on FFT bins
   inside an acoustic passband (default 2..10 kHz at 48 kHz/512-point
@@ -13,7 +13,7 @@ this is a from-scratch TPU-first design:
   batched ``jnp.fft.irfft`` over all symbols of all frames at once.
 * QPSK subcarrier mapping (Gray-coded), cyclic prefix against echo.
 * Chirp preamble (shared with the ASK modem) for coarse sync via the
-  Pallas/XLA correlator, then a known BPSK pilot symbol gives the
+  shared correlator, then a known BPSK pilot symbol gives the
   per-bin complex channel estimate; payload symbols are FFT'd, equalized
   (one-tap per bin), and demapped — all vmapped.
 * Framing reuses the PHY frame codec (CRC8 + [Len|CRC|Type|Seq|Src|Dst]),
@@ -142,13 +142,10 @@ def _windows_spectrum(cfg: OfdmConfig, rx: jax.Array, starts: jax.Array,
     """FFT spectra of the pilot + data symbol bodies at each start:
     f32[T], int32[B] -> complex64[B, 1+n_sym, n_bins].
 
-    Gather-free windowing: the old per-frame
+    Gather-free windowing: a per-frame
     ``dynamic_slice(pad, (start + body_off,), (total,))`` with traced
-    starts lowers (under the callers' vmap) to per-element gathers —
-    ~3.3M gathered elements for the batch-32 bench row, measured as
-    1.7 of the 2.65 ms demod stage (tools/prof_ofdm.py; an exact
-    shift_realign replacement still cost ~1 ms in one-hot/select
-    traffic).  Instead the receiver applies the standard OFDM timing
+    starts lowers (under the callers' vmap) to per-element gathers.
+    Instead the receiver applies the standard OFDM timing
     back-off: every symbol's FFT window within one frame shares the
     same offset mod 32 (``sym_len`` is a multiple of 32), so fetching
     each window at the 32-aligned position — delta in [0, 32) samples
@@ -164,9 +161,9 @@ def _windows_spectrum(cfg: OfdmConfig, rx: jax.Array, starts: jax.Array,
     estimate — see no timing artifact).  Under multipath the back-off COSTS
     late-echo guard when sync locks the first arrival: a window
     starting delta early tolerates echo delay cp_len - delta instead
-    of cp_len, which is why the granularity is 32 and not 128 (the
-    round-3 form left a worst case of cp_len - 127 = 1 sample; this
-    one keeps >= cp_len - 31 = 97 at the default cp).
+    of cp_len, which is why the granularity is 32 and not 128 (128
+    would leave a worst case of cp_len - 127 = 1 sample; 32 keeps
+    >= cp_len - 31 = 97 at the default cp).
     test_ofdm.py::test_demodulate_windows_match_slices pins the fetch
     against dynamic slices at the same back-off positions, and
     test_ofdm.py::test_ofdm_multipath_echo covers the echo guard.
@@ -227,7 +224,7 @@ def _windows_spectrum(cfg: OfdmConfig, rx: jax.Array, starts: jax.Array,
     # returns the NOMINAL-window spectrum exactly, so smoothing /
     # cross-bin channel estimators downstream (ofdm_v2's 9-bin moving
     # average would attenuate a 31-sample ramp's phasor to ~0.6, and a
-    # compounded SC-early + delta ramp to ~0.04 — the r4 regression)
+    # compounded SC-early + delta ramp to ~0.04)
     # see no timing artifact at all.
     delta = (wpos - aligned).astype(jnp.float32)        # [B*nst] in [0,32)
     k_abs = jnp.arange(cfg.bin_lo, cfg.bin_hi, dtype=jnp.float32)
@@ -288,7 +285,7 @@ def find_preambles(cfg: OfdmConfig, rx: jax.Array,
     from trackmaker_tpu import sync as sync_mod
     pre = chirp_cached(cfg.preamble_len, cfg.chirp_lo_hz, cfg.chirp_hi_hz,
                        cfg.sample_rate)
-    corr = sync_mod.auto_xcorr(rx, pre)
+    corr = sync_mod.normalized_xcorr(rx, pre)
     t = corr.shape[-1]
     hits = corr >= cfg.sync_threshold
     # block-bitmap first-hit queries: the previous form rescanned the

@@ -9,7 +9,7 @@ bins, QPSK/BPSK on middling ones, nothing on dead ones.
 
 This is a beyond-parity extension: the reference stack is single
 -carrier and its vendored study material (assets/psk.cxx) is
-fixed-constellation.  TPU-first shape: the loading is a *static* tuple
+fixed-constellation.  Batched shape: the loading is a *static* tuple
 on a frozen config, so every mod/demod specializes at trace time into
 three dense per-class gathers (BPSK/QPSK/16-QAM bins) — no per-bin
 control flow, one IFFT/FFT batch over all symbols, same as the v1/v2
@@ -771,7 +771,7 @@ class OfdmAdaptiveStreamPhy:
             self._buf = self._buf[-cfg.preamble_len:]
         return out
 
-    # -- batched TPU decode (equal-length frames) ------------------------
+    # -- batched device decode (equal-length frames) ---------------------
 
     def batched_decode_fn(self, n_frames: int, payload_len: int):
         """Build a jittable ``x[B, T] -> (starts[B, F], bits[B, F,
@@ -789,8 +789,7 @@ class OfdmAdaptiveStreamPhy:
         inv_h = np.argsort(self._perm(self.HDR_CODED))
         inv_p = np.argsort(self._perm(pay_coded))
         # static-permutation deinterleave as a one-hot matmul (exact
-        # f32 pick at HIGHEST; the last-axis gather ran at TPU-gather
-        # speed even with constant indices — see phy/coded.py)
+        # f32 pick at HIGHEST — see phy/coded.py)
         pm_h = np.zeros((self.HDR_CODED, self.HDR_CODED), np.float32)
         pm_h[np.arange(self.HDR_CODED), inv_h] = 1.0
         pm_p = np.zeros((pay_coded, pay_coded), np.float32)

@@ -10,7 +10,7 @@ no pip packages involved).  Provides:
 * :func:`frame_serialize` / :func:`frame_parse` — frame byte codec
 * :class:`RingBuffer` — SPSC float ring for capture streaming
 * :func:`active_regions` — energy-gated segmenter that ships only
-  active capture regions to the TPU decoder
+  active capture regions to the device decoder
 
 Every entry point has a NumPy fallback elsewhere in the package; this
 module is the fast path, not a hard dependency.
